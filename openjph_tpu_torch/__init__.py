@@ -1,0 +1,22 @@
+"""openjph_tpu_torch: the HTJ2K (ISO/IEC 15444-15) decoder of openjph_tpu,
+ported to PyTorch and CUDA for one NVIDIA H100.
+
+The host layer (codestream syntax, Tier-2, planning, packing) is a copy
+of the JAX package's; the device path is torch ops plus a hand-written
+CUDA kernel for the HT cleanup-pass decode.  Entry points run on the
+card (``device='cuda'``) unless the caller passes ``device='cpu'``,
+which runs the kernels' plain PyTorch versions; a CUDA request without
+a card raises RuntimeError.
+"""
+from .core.message import OjphError, OjphWarning  # noqa: F401
+from .gpu.pipeline import GpuDecoder, decode_gpu  # noqa: F401
+
+
+def decode(data: bytes, device='cuda', skip_res: int = 0,
+           raw: bool = True):
+    """Decode a .j2c codestream to per-component numpy planes on
+    ``device`` (see :func:`decode_gpu`)."""
+    return decode_gpu(data, device=device, skip_res=skip_res, raw=raw)
+
+
+__version__ = '0.1.0'

@@ -1,0 +1,188 @@
+"""Wrapper of the CUDA HT cleanup-pass decoder (csrc/ht_cleanup_decode.cu),
+with its two entry points:
+
+- :func:`decode_cleanup` (dense readers; the JAX package's
+  decode_cleanup_pallas): dense, host-unstuffed word rows;
+- :func:`decode_cleanup_raw` (raw readers; decode_cleanup_pallas_raw):
+  each lane's stuffed bytes in the packed segment blob.
+
+A CPU tensor takes the plain PyTorch version (block_decode.py, plus
+unstuff.py for the raw readers).  A CUDA tensor launches the kernel or
+raises: there is no fallback.  The kernel is compiled with nvcc for
+sm_90a at first use into build/openjph_tpu_torch/ and bound with
+ctypes; it runs on the current CUDA stream and allocates nothing.
+``LAUNCHES`` counts the kernel launches of each entry point.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+
+import torch
+
+from . import block_decode as plain
+from ._build import load_library, nvcc_path
+from .unstuff import raw_to_dense
+
+SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'csrc',
+                   'ht_cleanup_decode.cu')
+LAUNCHES = {'ht_cleanup_decode_dense': 0, 'ht_cleanup_decode_raw': 0}
+# codeblocks (threads) per CUDA block.  Lanes of one warp diverge at
+# every branch of the bit parsing, so few lanes per block run faster:
+# on an H100 (700 W), 2 beat 1, 4, 8, 16 and 32 in both reader modes
+# on the 2048x1080 gray frame's 768 lanes (chip_smoke.py's sweep).
+THREADS = 2
+
+_lib = None
+_TABLES = {}
+
+
+def load():
+    """Build (once) and load the kernel library."""
+    global _lib
+    if _lib is None:
+        nvcc = nvcc_path()
+        lib = load_library(
+            'ht_cleanup_decode', [SRC],
+            lambda out: [nvcc, '-gencode', 'arch=compute_90a,code=sm_90a',
+                         '-std=c++17', '-O3', '-shared', '-Xcompiler',
+                         '-fPIC', '-o', out, SRC])
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.ht_cleanup_decode_dense.restype = ci
+        lib.ht_cleanup_decode_dense.argtypes = (
+            [vp, vp, vp, ci, ci, ci, vp, vp, vp, vp, vp, ci, ci, ci, ci,
+             vp])
+        lib.ht_cleanup_decode_raw.restype = ci
+        lib.ht_cleanup_decode_raw.argtypes = (
+            [vp, ctypes.c_longlong, vp, vp, vp, vp, vp, vp, vp, vp, ci,
+             ci, ci, ci, vp])
+        _lib = lib
+    return _lib
+
+
+def _tables(device) -> torch.Tensor:
+    """dec_vlc0|1 (2048) + dec_uvlc0|1 (576) as one int32 tensor."""
+    key = str(device)
+    if key not in _TABLES:
+        vlc, uvlc, _ = plain.tables('cpu')
+        t = torch.cat([vlc, uvlc]).to(torch.int32)
+        _TABLES[key] = t.to(device)
+    return _TABLES[key]
+
+
+def _check(device, **tensors):
+    for name, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f'{name} is on {t.device}, expected {device}')
+        if not t.is_contiguous():
+            raise ValueError(f'{name} must be contiguous')
+
+
+def _i32(t):
+    if t.dtype != torch.int32:
+        raise ValueError(f'expected int32, got {t.dtype}')
+    return t
+
+
+def decode_cleanup(melw, vlcw, msw, p, width: int, height: int,
+                   qh_lim=None):
+    """Decode N same-shape codeblocks from dense word rows.
+
+    melw / vlcw / msw: int32 [N, W*] holding uint32 words; p = 30 -
+    missing_msbs [N] int32; qh_lim [N] int32 quad-row limit (None:
+    every row).  Returns (dec int32 [N, height, width] uint32 bit
+    patterns, rows at or past 2*qh_lim zero; err bool [N])."""
+    n = melw.shape[0]
+    if qh_lim is None:
+        qh_lim = torch.full((n,), (height + 1) >> 1, dtype=torch.int32,
+                            device=melw.device)
+    if melw.device.type == 'cpu':
+        return plain.decode_cleanup_core(melw, vlcw, msw, p, width, height,
+                                         qh_lim)
+    if melw.device.type != 'cuda':
+        raise RuntimeError(f'no HT decoder for device {melw.device}')
+    dev = melw.device
+    for t in (melw, vlcw, msw, p, qh_lim):
+        _i32(t)
+    _check(dev, melw=melw, vlcw=vlcw, msw=msw, p=p, qh_lim=qh_lim)
+    if not (vlcw.shape[0] == msw.shape[0] == p.shape[0]
+            == qh_lim.shape[0] == n):
+        raise ValueError('lane counts differ')
+    lib = load()
+    dec = torch.empty((n, height, width), dtype=torch.int32, device=dev)
+    err = torch.empty((n,), dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.ht_cleanup_decode_dense(
+            melw.data_ptr(), vlcw.data_ptr(), msw.data_ptr(),
+            melw.shape[1], vlcw.shape[1], msw.shape[1], p.data_ptr(),
+            qh_lim.data_ptr(), _tables(dev).data_ptr(), dec.data_ptr(),
+            err.data_ptr(), n, width, height, THREADS, stream)
+    if rc != 0:
+        raise RuntimeError(f'ht_cleanup_decode_dense launch failed: '
+                           f'CUDA error {rc}')
+    LAUNCHES['ht_cleanup_decode_dense'] += 1
+    return dec, err
+
+
+def decode_cleanup_raw_plain(blob, lane_off, ms_n, sh_n, p, width: int,
+                             height: int, qh_lim, words):
+    """Plain version of the raw-reader mode: unstuff.raw_to_dense, then
+    the plain block decoder.  A lane whose byte range leaves the blob
+    decodes to zeros with its error flag set, as in the kernel."""
+    mel, vlc, ms = raw_to_dense(blob, lane_off, ms_n, sh_n, words)
+    dec, err = plain.decode_cleanup_core(mel, vlc, ms, p, width, height,
+                                         qh_lim)
+    off = lane_off.to(torch.int64)
+    bad = ((off < 0) | (ms_n < 0) | (sh_n < 1)
+           | (off + ms_n + sh_n > blob.shape[0]))
+    dec = torch.where(bad[:, None, None], torch.zeros_like(dec), dec)
+    return dec, err | bad
+
+
+def decode_cleanup_raw(blob, lane_off, ms_n, sh_n, p, width: int,
+                       height: int, qh_lim, words):
+    """Decode N same-shape codeblocks straight from the segment blob.
+
+    blob: uint8 [B]; lane i's MagSgn bytes are blob[lane_off[i] :
+    lane_off[i] + ms_n[i]], followed by its sh_n[i] MEL/VLC bytes (the
+    last one OR'd 0xF by the packer).  ``words`` = (wm, wv, ws) sizes
+    the plain version's dense rows; the kernel has no such limit.
+    Returns (dec, err) as :func:`decode_cleanup`."""
+    if blob.device.type == 'cpu':
+        return decode_cleanup_raw_plain(blob, lane_off, ms_n, sh_n, p,
+                                        width, height, qh_lim, words)
+    if blob.device.type != 'cuda':
+        raise RuntimeError(f'no HT decoder for device {blob.device}')
+    dev = blob.device
+    if blob.dtype != torch.uint8:
+        raise ValueError(f'blob must be uint8, got {blob.dtype}')
+    for t in (lane_off, ms_n, sh_n, p, qh_lim):
+        _i32(t)
+    _check(dev, blob=blob, lane_off=lane_off, ms_n=ms_n, sh_n=sh_n, p=p,
+           qh_lim=qh_lim)
+    n = lane_off.shape[0]
+    if not (ms_n.shape[0] == sh_n.shape[0] == p.shape[0]
+            == qh_lim.shape[0] == n):
+        raise ValueError('lane counts differ')
+    lib = load()
+    dec = torch.empty((n, height, width), dtype=torch.int32, device=dev)
+    err = torch.empty((n,), dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.ht_cleanup_decode_raw(
+            blob.data_ptr(), blob.shape[0], lane_off.data_ptr(),
+            ms_n.data_ptr(), sh_n.data_ptr(), p.data_ptr(),
+            qh_lim.data_ptr(), _tables(dev).data_ptr(), dec.data_ptr(),
+            err.data_ptr(), n, width, height, THREADS, stream)
+    if rc != 0:
+        raise RuntimeError(f'ht_cleanup_decode_raw launch failed: '
+                           f'CUDA error {rc}')
+    LAUNCHES['ht_cleanup_decode_raw'] += 1
+    return dec, err
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+

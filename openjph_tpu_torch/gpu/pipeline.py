@@ -1,0 +1,829 @@
+"""Fused frame decode on one GPU: host Tier-2 parse -> plan -> pack ->
+one upload -> Tier-1 (the CUDA HT cleanup decoder) -> placement ->
+dequantization -> inverse DWT -> inverse colour -> sample conversion,
+with the frames left in device memory until the caller takes them.
+
+The planner and packers are the JAX package's (tpu/pipeline.py) with
+two changes: lane groups are padded to multiples of 8 (the 128-lane
+padding was a TPU register constraint), and the raw-bytes packer has
+no stuffing-density ceiling, because the kernel's readers take each
+lane's bytes directly.  Codeblocks are the batch axis: all blocks of
+one width form a lane group, heights padded to the group maximum, and
+a burst of same-geometry frames is batched along the lanes (frame f of
+group g occupies lanes [f*n_pad, (f+1)*n_pad)).
+
+Two runner modes: ``raw=True`` ships one buffer (the stuffed segment
+bytes plus per-lane meta) and the kernel unstuffs in its readers;
+``raw=False`` ships host-unstuffed dense words plus meta.
+"""
+from __future__ import annotations
+
+import threading
+from collections import OrderedDict
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import native
+from ..codec import Decoder
+from ..core.markers import Dfs
+from . import color as clr
+from . import dwt
+from .bitprep import prep_cleanup_streams
+from .block_decode_cuda import decode_cleanup, decode_cleanup_raw
+from .quant import tx_from_cb
+
+# Blob and dense-buffer margins keep the JAX package's layout
+# (its device window fetch read rows of this many words), so the two
+# packers produce identical buffers.
+_ROW = 512
+
+_ROADMAP_MULTIPASS = ('multi-pass (SigProp/MagRef) codeblocks are not '
+                      'ported yet: ROADMAP.md Queue A, "Multi-pass '
+                      'refinement"')
+_ROADMAP_COVERAGE = ('this stream needs the coverage contracts that are '
+                     'not ported yet (resilient decode, broken '
+                     'codeblocks, more than 30 bit planes): ROADMAP.md '
+                     'Queue A, "Resilient decode and fused-path coverage '
+                     'contracts"')
+
+
+def resolve_device(device) -> torch.device:
+    """torch.device for an entry point's ``device``; RuntimeError when
+    CUDA is asked for and none is present (no CPU fallback)."""
+    dev = torch.device(device)
+    if dev.type == 'cuda':
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                'openjph_tpu_torch: device %r requested but CUDA is not '
+                'available; pass device="cpu" to run the plain PyTorch '
+                'versions on the CPU' % str(device))
+    elif dev.type != 'cpu':
+        raise ValueError(f'unsupported device {device!r}')
+    return dev
+
+
+def _narrow_dtype(bd: int, sgn: bool):
+    """Smallest dtype holding bd-bit samples."""
+    if bd <= 8:
+        return torch.int8 if sgn else torch.uint8
+    if bd <= 16:
+        return torch.int16 if sgn else torch.uint16
+    return torch.int32
+
+
+def _bucket(n: int, lo: int = 8) -> int:
+    """Round up to a small set of sizes (pow2 below 256, then multiples
+    of 256) so padding waste stays low."""
+    b = lo
+    while b < n and b < 256:
+        b *= 2
+    if n <= b:
+        return b
+    return -(-n // 256) * 256
+
+
+# ---------------------------------------------------------------------------
+# Decode plan: static description of one stream geometry
+# ---------------------------------------------------------------------------
+
+@dataclass
+class _Group:
+    gid: int
+    w: int
+    h: int = 0                      # max true height (padded target)
+    members: list = field(default_factory=list)
+    n_pad: int = 0
+    words: Tuple[int, int, int] = (0, 0, 0)
+    # refine-stream word widths (0, 0) when no lane has SigProp/MagRef
+    rwords: Tuple[int, int] = (0, 0)
+
+
+@dataclass
+class _Plan:
+    key: tuple
+    groups: List[_Group]
+    # (gid, lane0, nrows, ncols, h_true, y0, band_id, x0)
+    placements: List[tuple]
+    # band_id -> (H, W, kmax, delta, reversible)
+    bands: List[tuple]
+    # per tile: (mct, (comp struct, ...), narrow_ok)
+    tiles: List[tuple]
+    # per-lane arrays in meta order (pos, lcup, scup, p, qhl, npasses,
+    # len2, h_true, causal); pos == -1 marks a dead/padding lane
+    lanes: object = None
+    has_refine: bool = False
+
+
+def _res_band_list(res, r: int):
+    """Bands present at a resolution level under its (possibly
+    Part-2 DFS) decomposition type (ojph_resolution.cpp:104-187):
+    BIDIR -> HL/LH/HH, H-only -> band 1, V-only -> band 2, NO_DWT ->
+    none (pass-through level)."""
+    if r == 0:
+        return [0]
+    dt = res.dwt_type
+    if dt == Dfs.BIDIR_DWT:
+        return [1, 2, 3]
+    if dt == Dfs.HORZ_DWT:
+        return [1]
+    if dt == Dfs.VERT_DWT:
+        return [2]
+    return []
+
+
+# ---------------------------------------------------------------------------
+# Planner: the geometry walk is cached per stream header (it is
+# identical for every frame of a video); per-frame work is a handful of
+# vectorised numpy passes over the Tier-2 record arrays.
+# ---------------------------------------------------------------------------
+
+class _Skel:
+    __slots__ = ('groups', 'merged', 'bands', 'tiles')
+
+
+class _SkelGroup:
+    __slots__ = ('gid', 'w', 'h', 'n_pad', 'nm', 'qh_geom', 'h_geom',
+                 'causal_geom', 'segs')
+
+
+_SKELS: 'OrderedDict' = OrderedDict()
+_SKELS_LOCK = threading.Lock()
+
+
+def _plan_skeleton(dec, tile_indices):
+    """Geometry-only plan parts (groups' lane layout, placements,
+    bands, tiles), cached per (header bytes, skip, tiles)."""
+    ck = (bytes(dec.data[:dec.hdr.header_size]), dec.skip_recon,
+          None if tile_indices is None else tuple(tile_indices))
+    with _SKELS_LOCK:
+        if ck in _SKELS:
+            _SKELS.move_to_end(ck)
+            return _SKELS[ck]
+    skel = _build_skeleton(dec, tile_indices)
+    with _SKELS_LOCK:
+        _SKELS[ck] = skel
+        while len(_SKELS) > 32:
+            _SKELS.popitem(last=False)
+    return skel
+
+
+def _build_skeleton(dec, tile_indices):
+    placements = []
+    bands = []
+    tiles = []
+    groups: Dict[int, _SkelGroup] = {}
+    sel_idx = (range(len(dec.tiles)) if tile_indices is None
+               else tile_indices)
+    for ti in sel_idx:
+        st = dec.tiles[ti]
+        tile_comps = []
+        for c, comp in enumerate(st.geom.comps):
+            cod = dec.hdr.get_cod(c)
+            rev = cod.is_reversible
+            skip = min(dec.skip_recon, comp.num_decomps)
+            top = comp.num_decomps - skip
+            res_specs = []
+            for r in range(top + 1):
+                res = comp.resolutions[r]
+                bids = []
+                for b in _res_band_list(res, r):
+                    sb = res.bands[b]
+                    bid = len(bands)
+                    bands.append((sb.rect.h, sb.rect.w, sb.kmax,
+                                  float(sb.delta), rev))
+                    bids.append(bid)
+                    grp0 = None
+                    seg_idx = []
+                    seg_qh = []
+                    seg_h = []
+                    causal = cod.vert_causal
+                    run = None  # (gid, lane0, ncols, h_true, y0, x0)
+                    for g in sb.blocks:
+                        grp = groups.get(g.rect.w)
+                        if grp is None:
+                            grp = _SkelGroup()
+                            grp.gid = len(groups)
+                            grp.w = g.rect.w
+                            grp.h = 0
+                            grp.nm = 0
+                            grp.qh_geom = []
+                            grp.h_geom = []
+                            grp.causal_geom = []
+                            grp.segs = []
+                            groups[g.rect.w] = grp
+                        if grp0 is not None and grp is not grp0 \
+                                and seg_idx:
+                            grp0.segs.append(
+                                (ti, c, r, b,
+                                 np.asarray(seg_idx, np.int64)))
+                            grp0.qh_geom += seg_qh
+                            grp0.h_geom += seg_h
+                            grp0.causal_geom += [causal] * len(seg_idx)
+                            seg_idx, seg_qh, seg_h = [], [], []
+                        grp0 = grp
+                        lane = grp.nm
+                        grp.nm += 1
+                        grp.h = max(grp.h, g.rect.h)
+                        seg_idx.append(g.cb_y * sb.num_cb_x + g.cb_x)
+                        seg_qh.append((g.rect.h + 1) >> 1)
+                        seg_h.append(g.rect.h)
+                        y0 = g.rect.y0 - sb.rect.y0
+                        x0 = g.rect.x0 - sb.rect.x0
+                        if run is not None and run[0] == grp.gid \
+                                and run[3] == g.rect.h \
+                                and run[4] == y0 \
+                                and run[5] + run[2] * g.rect.w == x0 \
+                                and lane == run[1] + run[2]:
+                            run = (run[0], run[1], run[2] + 1, run[3],
+                                   run[4], run[5])
+                        else:
+                            if run is not None:
+                                placements.append(run + (bid,))
+                            run = (grp.gid, lane, 1, g.rect.h, y0, x0)
+                    if run is not None:
+                        placements.append(run + (bid,))
+                    if grp0 is not None and seg_idx:
+                        grp0.segs.append(
+                            (ti, c, r, b, np.asarray(seg_idx, np.int64)))
+                        grp0.qh_geom += seg_qh
+                        grp0.h_geom += seg_h
+                        grp0.causal_geom += [causal] * len(seg_idx)
+                h_even = (res.rect.x0 & 1) == 0
+                v_even = (res.rect.y0 & 1) == 0
+                res_specs.append((tuple(bids), h_even, v_even,
+                                  int(res.dwt_type)))
+            tile_comps.append((tuple(res_specs), rev,
+                               dec.hdr.siz.comps[c].bit_depth,
+                               dec.hdr.siz.comps[c].is_signed,
+                               dec.hdr.nlt.type3_for(c),
+                               cod.kernel))
+        nc = dec.hdr.siz.num_comps
+        mct = dec.hdr.cod.mc_trans == 1 and nc >= 3
+        # narrowing to 8/16-bit is only valid at full reconstruction:
+        # skipped-resolution output is LL coefficients with DWT gain,
+        # which legitimately exceed the nominal sample range
+        tiles.append((mct, tuple(tile_comps), dec.skip_recon == 0))
+
+    glist = sorted(groups.values(), key=lambda g: g.gid)
+    for grp in glist:
+        grp.n_pad = _bucket(grp.nm)
+        grp.qh_geom = np.asarray(grp.qh_geom, np.int32)
+        grp.h_geom = np.asarray(grp.h_geom, np.int32)
+        grp.causal_geom = np.asarray(grp.causal_geom, bool)
+
+    # vertical merge of compatible row strips
+    merged = []
+    for (gid, lane0, ncols, h_t, y0, x0, bid) in placements:
+        if merged:
+            m = merged[-1]
+            if m[0] == gid and m[6] == bid and m[3] == ncols \
+                    and m[4] == h_t and m[7] == x0 \
+                    and m[5] + m[2] * h_t == y0 \
+                    and m[1] + m[2] * ncols == lane0:
+                merged[-1] = (m[0], m[1], m[2] + 1, m[3], m[4], m[5],
+                              m[6], m[7])
+                continue
+        merged.append((gid, lane0, 1, ncols, h_t, y0, bid, x0))
+
+    skel = _Skel()
+    skel.groups = glist
+    skel.merged = merged
+    skel.bands = bands
+    skel.tiles = tiles
+    return skel
+
+
+def _build_plan(dec, tile_indices=None) -> Optional[_Plan]:
+    """Per-frame plan from the Tier-2 record arrays; None when the
+    fused path cannot take the stream (more than 3 passes or 30 bit
+    planes, coded ranges past the end of the stream, a bad scup).
+    ``tile_indices`` restricts the plan to a subset of tiles."""
+    skel = _plan_skeleton(dec, tile_indices)
+    buf = np.frombuffer(dec.data, np.uint8)
+    glist = []
+    key_groups = []
+    pos_l, lcup_l, scup_l, p_l, qhl_l = [], [], [], [], []
+    np_l, l2_l, h_l, cs_l = [], [], [], []
+    any_refine = False
+    for g in skel.groups:
+        rows = np.empty((g.nm, 6), np.int32)
+        poss = np.empty(g.nm, np.int64)
+        at = 0
+        for (ti, c, r, b, idx) in g.segs:
+            rb, pb = dec.tiles[ti].rec[(c, r)][b]
+            k = len(idx)
+            rows[at:at + k] = rb[idx]
+            poss[at:at + k] = pb[idx]
+            at += k
+        mm = rows[:, 0]
+        npss = rows[:, 1]
+        l0 = rows[:, 2]
+        l1 = rows[:, 3]
+        inc = rows[:, 4]
+        nb = rows[:, 5]
+        dead = (inc == 0) | (npss == 0) | (l0 == 0) | (nb == 0)
+        live = ~dead
+        if bool(np.any(live & ((npss > 3) | (mm >= 30) | (l0 < 2)))):
+            return None
+        # reference pass-count clamps (decode_codeblock)
+        npss = np.where(live & ((l1 == 0) | (mm >= 29)), 1, npss)
+        l1 = np.where(npss <= 1, 0, l1)
+        # coded ranges must lie inside the stream: a corrupt header
+        # can declare lengths past EOF, and the native pack reads the
+        # (pos, l0 [+l1]) ranges with C pointers
+        if bool(np.any(live & (poss + l0 + l1 > buf.shape[0]))):
+            return None
+        last = np.where(live, poss + l0, 2)
+        scup = ((buf[last - 1].astype(np.int32) << 4)
+                + (buf[last - 2] & 0xF))
+        if bool(np.any(live & ((scup < 2) | (scup > l0)
+                               | (scup > 4079)))):
+            return None
+        pad = g.n_pad - g.nm
+        lcup_a = np.where(live, l0, 2).astype(np.int64)
+        scup_a = np.where(live, scup, 2).astype(np.int64)
+        pos_a = np.where(live, poss, -1)
+        p_a = np.where(live, 30 - mm, 30).astype(np.int32)
+        qhl_a = np.where(live, g.qh_geom, 0).astype(np.int32)
+        np_a = np.where(live, npss, 1).astype(np.int32)
+        l2_a = np.where(live, l1, 0).astype(np.int64)
+        h_a = np.where(live, g.h_geom, 0).astype(np.int32)
+        cs_a = g.causal_geom.copy()
+        if pad:
+            lcup_a = np.concatenate(
+                [lcup_a, np.full(pad, 2, np.int64)])
+            scup_a = np.concatenate(
+                [scup_a, np.full(pad, 2, np.int64)])
+            pos_a = np.concatenate([pos_a, np.full(pad, -1, np.int64)])
+            p_a = np.concatenate([p_a, np.full(pad, 30, np.int32)])
+            qhl_a = np.concatenate([qhl_a, np.zeros(pad, np.int32)])
+            np_a = np.concatenate([np_a, np.ones(pad, np.int32)])
+            l2_a = np.concatenate([l2_a, np.zeros(pad, np.int64)])
+            h_a = np.concatenate([h_a, np.zeros(pad, np.int32)])
+            cs_a = np.concatenate([cs_a, np.zeros(pad, bool)])
+        if bool(live.any()):
+            smax = int(scup_a[:g.nm][live].max())
+            msmax = int((lcup_a[:g.nm] - scup_a[:g.nm])[live].max())
+            wm = _bucket(((smax - 1) * 8 + 31) // 32 + 2)
+            wv = _bucket((4 + (smax - 2) * 8 + 31) // 32 + 2)
+            ws = _bucket((msmax * 8 + 31) // 32 + 2)
+            words = (wm, wv, ws)
+        else:
+            words = (8, 8, 8)
+        l2max = int(l2_a.max()) if l2_a.size else 0
+        rwords = (0, 0)
+        if l2max > 0:
+            wr = _bucket((l2max * 8 + 31) // 32 + 3)
+            rwords = (wr, wr)
+            any_refine = True
+        grp = _Group(g.gid, g.w, g.h, members=[None] * g.nm,
+                     n_pad=g.n_pad, words=words, rwords=rwords)
+        glist.append(grp)
+        key_groups.append((g.gid, g.w, g.h, g.n_pad, words, rwords))
+        pos_l.append(pos_a)
+        lcup_l.append(lcup_a)
+        scup_l.append(scup_a)
+        p_l.append(p_a)
+        qhl_l.append(qhl_a)
+        np_l.append(np_a)
+        l2_l.append(l2_a)
+        h_l.append(h_a)
+        cs_l.append(cs_a)
+    key = (tuple(key_groups), tuple(skel.merged), tuple(skel.bands),
+           tuple(skel.tiles))
+    plan = _Plan(key, glist, skel.merged, skel.bands, skel.tiles)
+    plan.lanes = (np.concatenate(pos_l), np.concatenate(lcup_l),
+                  np.concatenate(scup_l), np.concatenate(p_l),
+                  np.concatenate(qhl_l), np.concatenate(np_l),
+                  np.concatenate(l2_l), np.concatenate(h_l),
+                  np.concatenate(cs_l))
+    plan.has_refine = any_refine
+    return plan
+
+
+# ---------------------------------------------------------------------------
+# Device runner
+# ---------------------------------------------------------------------------
+
+class _Runner:
+    """The fused decode of ``nframes`` same-geometry frames on
+    ``device``.  ``tier1(*args)`` runs the HT cleanup decoder per lane
+    group and zeroes dead and broken lanes; ``rest(decs)`` places the
+    codeblocks into band planes and reconstructs; calling the runner
+    does both and returns (err [lanes] bool, outputs), outputs being
+    per tile a tuple of per-component [nframes, h, w] tensors."""
+
+    def __init__(self, plan: _Plan, nframes: int, device, raw: bool):
+        self.plan = plan
+        self.F = nframes
+        self.device = torch.device(device)
+        self.raw = raw
+        self.lane_starts = []
+        tl = 0
+        for g in plan.groups:
+            self.lane_starts.append(tl)
+            tl += g.n_pad
+        self.tl = tl
+
+    def __call__(self, *args):
+        decs, errs = self.tier1(*args)
+        return torch.cat(errs), self.rest(decs)
+
+    def tier1(self, *args):
+        F, tl = self.F, self.tl
+        if self.raw:
+            buf, = args
+            blob = buf.view(torch.uint8)
+            meta = buf[buf.shape[0] - F * tl * 8:]
+        else:
+            words, meta = args
+        meta = meta.reshape(F, tl, 8)
+        decs, errs = [], []
+        for g, s0 in zip(self.plan.groups, self.lane_starts):
+            mg = meta[:, s0:s0 + g.n_pad].reshape(F * g.n_pad, 8)
+            col = [mg[:, k].contiguous() for k in range(8)]
+            p, qhl = col[6], col[7]
+            if self.raw:
+                # meta: lane_off, ms_n, sh_n, 0, 0, 0, p, qhl
+                d, e = decode_cleanup_raw(blob, col[0], col[1], col[2], p,
+                                          g.w, g.h, qhl, g.words)
+            else:
+                # meta: mel_off, lm, vlc_off, lv, ms_off, ls, p, qhl
+                wm, wv, ws = g.words
+                mel = _window(words, col[0], col[1], wm, -1)
+                vlc = _window(words, col[2], col[3], wv, 0)
+                ms = _window(words, col[4], col[5], ws, -1)
+                d, e = decode_cleanup(mel, vlc, ms, p, g.w, g.h, qhl)
+            # dead lanes and broken lanes decode to zero blocks (the
+            # caller raises on the error flags before using them)
+            ok = (qhl > 0) & ~e
+            d = torch.where(ok[:, None, None], d, torch.zeros_like(d))
+            decs.append(d.reshape(F, g.n_pad, g.h, g.w))
+            errs.append(e.reshape(F, g.n_pad)[:, :len(g.members)]
+                        .reshape(-1))
+        return decs, errs
+
+    def rest(self, decs):
+        F = self.F
+        plan = self.plan
+        planes = [torch.zeros((F, H, W), dtype=torch.int32,
+                              device=self.device)
+                  for (H, W, _, _, _) in plan.bands]
+        for (gid, lane0, nrows, ncols, h_t, y0, bid, x0) in \
+                plan.placements:
+            w_t = plan.groups[gid].w
+            d = decs[gid][:, lane0:lane0 + nrows * ncols, :h_t, :w_t]
+            strip = d.reshape(F, nrows, ncols, h_t, w_t) \
+                .permute(0, 1, 3, 2, 4) \
+                .reshape(F, nrows * h_t, ncols * w_t)
+            planes[bid][:, y0:y0 + nrows * h_t,
+                        x0:x0 + ncols * w_t] = strip
+        deq = [tx_from_cb(planes[i], kmax, delta, rev)
+               for i, (_, _, kmax, delta, rev) in enumerate(plan.bands)]
+
+        outs = []
+        for (mct, comps, narrow_ok) in plan.tiles:
+            rec = []
+            for (res_specs, rev, bd, sgn, nlt3, kern) in comps:
+                plane = deq[res_specs[0][0][0]]
+                for (bids, h_even, v_even, dt) in res_specs[1:]:
+                    # Part-2 DFS: a level may split both ways, one
+                    # way, or not at all (ojph_resolution.cpp:713-949)
+                    if dt == Dfs.BIDIR_DWT:
+                        plane = dwt.inv_dwt2d(
+                            plane, deq[bids[0]], deq[bids[1]],
+                            deq[bids[2]], h_even, v_even, rev, kern)
+                    elif dt == Dfs.HORZ_DWT:
+                        plane = dwt.inv_atk_1d(plane, deq[bids[0]],
+                                               h_even, plane.ndim - 1,
+                                               kern)
+                    elif dt == Dfs.VERT_DWT:
+                        plane = dwt.inv_atk_1d(plane, deq[bids[0]],
+                                               v_even, plane.ndim - 2,
+                                               kern)
+                    # NO_DWT: pass-through level
+                rec.append(plane)
+            if mct:
+                if comps[0][1]:
+                    rec[0], rec[1], rec[2] = clr.rct_backward(
+                        rec[0], rec[1], rec[2])
+                else:
+                    rec[0], rec[1], rec[2] = clr.ict_backward(
+                        rec[0], rec[1], rec[2])
+            conv = []
+            for ci, (res_specs, rev, bd, sgn, nlt3, _) in enumerate(comps):
+                if rev:
+                    c = clr.rev_convert_out(rec[ci], bd, sgn, nlt3)
+                else:
+                    c = clr.irv_convert_to_integer(rec[ci], bd, sgn, nlt3)
+                # clipped to the nominal range and narrowed, as the
+                # JAX fused path does (skipped-resolution output keeps
+                # int32: it is LL coefficients with DWT gain)
+                dtype = _narrow_dtype(bd, sgn) if narrow_ok else torch.int32
+                if dtype != torch.int32:
+                    lo, hi = ((-(1 << (bd - 1)), (1 << (bd - 1)) - 1)
+                              if sgn else (0, (1 << bd) - 1))
+                    c = c.clamp(lo, hi)
+                conv.append(c.to(dtype))
+            outs.append(tuple(conv))
+        return tuple(outs)
+
+
+def _window(words, off, ln, width: int, guard: int):
+    """[L, width] rows words[off : off + width] per lane, with
+    ``guard`` (int32 bit pattern) at and past each lane's length."""
+    j = torch.arange(width, dtype=torch.int64, device=words.device)
+    idx = (off.to(torch.int64)[:, None] + j).clamp(0, words.shape[0] - 1)
+    rows = words[idx]
+    return torch.where(j[None, :] < ln[:, None], rows,
+                       torch.full_like(rows, guard)).contiguous()
+
+
+def _make_runner(plan: _Plan, nframes: int = 1, device='cuda',
+                 raw: bool = True) -> _Runner:
+    """The fused decode of ``nframes`` frames of ``plan``'s geometry on
+    ``device``; ``raw`` selects the raw-bytes (True) or dense-words
+    (False) input layout."""
+    return _Runner(plan, nframes, resolve_device(device), raw)
+
+
+# ---------------------------------------------------------------------------
+# Packers
+# ---------------------------------------------------------------------------
+
+def _bucket_words(n: int) -> int:
+    """Dense-buffer size bucket: pow2 to 256Ki words, then 64Ki-word
+    multiples."""
+    b = 4096
+    while b < n and b < (1 << 18):
+        b *= 2
+    if n <= b:
+        return b
+    return -(-n // (1 << 16)) * (1 << 16)
+
+
+def _pack_burst(frames_groups: List[List[dict]]):
+    """Pack every stream word of a burst into ONE uint32 buffer and
+    the per-lane bookkeeping into ONE int32 buffer.  meta columns per
+    lane: mel_off, lm, vlc_off, lv, ms_off, ls, p, qhl (offsets
+    absolute into the words buffer; qhl == 0 marks a dead lane)."""
+    chunks = []
+    metas = []
+    maxw = 8  # widest stream window: the buffer's tail margin
+    cursor = 0
+    for fg in frames_groups:
+        for gd in fg:
+            cols = []
+            for k, lk in (('mel', 'lm'), ('vlc', 'lv'), ('ms', 'ls')):
+                arr, ln = gd[k], gd[lk]
+                w = arr.shape[1]
+                maxw = max(maxw, w)
+                mask = np.arange(w, dtype=np.int32)[None, :] < ln[:, None]
+                chunks.append(arr[mask])
+                offs = cursor + np.concatenate(
+                    [[0], np.cumsum(ln[:-1], dtype=np.int64)])
+                cursor += int(ln.sum())
+                cols += [offs.astype(np.int32), ln]
+            metas.append(np.stack(cols + [gd['p'], gd['qhl']], axis=1))
+    words = np.concatenate(chunks)
+    dpad = _bucket_words(words.size + maxw + _ROW + 2)
+    words = np.pad(words, (0, dpad - words.size))
+    meta = np.ascontiguousarray(np.concatenate(metas, axis=0), np.int32)
+    return words, meta.reshape(-1)
+
+
+def _pack_burst_fast(pairs):
+    """Native fast path of _pack_burst: per-lane stream words are
+    unstuffed by C++ directly at their final dense-buffer positions,
+    threaded over lanes."""
+    datas: list = []
+    lc, sc, pp, qq, caps = [], [], [], [], []
+    for dec, plan in pairs:
+        d, l, scp, ps, qh = dec._lane_info(plan)
+        datas += d
+        lc.append(l)
+        sc.append(scp)
+        pp.append(ps)
+        qq.append(qh)
+        caps.append(np.concatenate(
+            [np.repeat(np.asarray(g.words, np.int64)[None, :],
+                       g.n_pad, axis=0) for g in plan.groups]))
+    lcups = np.concatenate(lc)
+    scups = np.concatenate(sc)
+    p = np.concatenate(pp)
+    qhl = np.concatenate(qq)
+    caps = np.concatenate(caps)  # [lanes, 3] word caps (wm, wv, ws)
+    lm = np.minimum(caps[:, 0], (scups - 1) * 8 // 32 + 3)
+    lv = np.minimum(caps[:, 1], ((scups - 2) * 8 + 4) // 32 + 3)
+    ls = np.minimum(caps[:, 2], (lcups - scups) * 8 // 32 + 3)
+    tot = lm + lv + ls
+    base = np.zeros_like(tot)
+    np.cumsum(tot[:-1], out=base[1:])
+    meta = np.stack([base, lm, base + lm, lv, base + lm + lv, ls,
+                     p.astype(np.int64), qhl.astype(np.int64)],
+                    axis=1).astype(np.int32)
+    blob = b''.join(datas)
+    offsets = np.zeros(len(datas) + 1, np.int64)
+    np.cumsum([len(d) for d in datas], out=offsets[1:])
+    dense = np.zeros(_bucket_words(int(tot.sum())
+                                   + int(caps.max()) + _ROW + 2),
+                     np.uint32)
+    native.prep_cleanup_dense(blob, offsets, lcups, scups, meta, dense)
+    return dense, meta.reshape(-1)
+
+
+def _blob_margin(pairs) -> int:
+    """Lead/tail margin (bytes) of the raw-bytes blob (the JAX
+    package's layout: max stream words + one row + 2, in words)."""
+    mw = 8
+    for _, p in pairs:
+        for g in p.groups:
+            mw = max(mw, *g.words, *g.rwords)
+            mw = max(mw, g.words[2] + max(g.words[0], g.words[1]) + 2)
+    return 4 * (mw + _ROW + 2)
+
+
+def _pack_device_records(pairs):
+    """Raw-bytes blob pack: per-lane byte positions come straight from
+    plan.lanes; the native builder copies each lane's d[0:lcup-1] out
+    of its frame's stream buffer (byte lcup-2 OR'd 0xF)."""
+    lcall = np.concatenate([p.lanes[1] for _, p in pairs])
+    scall = np.concatenate([p.lanes[2] for _, p in pairs])
+    pall = np.concatenate([p.lanes[3] for _, p in pairs])
+    qall = np.concatenate([p.lanes[4] for _, p in pairs])
+    lead = _blob_margin(pairs)
+    sizes = lcall - 1
+    base = np.zeros_like(sizes)
+    base[0] = lead
+    np.cumsum(sizes[:-1], out=base[1:])
+    base[1:] += lead
+    total = int(sizes.sum()) + 2 * lead
+    padded = 4 * _bucket_words(max((total + 3) // 4 + 1, 2))
+    blob = np.zeros(padded, np.uint8)
+    ptr_l = []
+    for dec, plan in pairs:
+        pos = plan.lanes[0]
+        buf = np.frombuffer(dec.data, np.uint8)
+        # dead lanes (pos < 0) get lcup < 2 via the sentinel pointer 0
+        ptr_l.append(np.where(pos >= 0, buf.ctypes.data + pos, 0))
+    ptrs = np.concatenate(ptr_l)
+    lc_eff = np.where(ptrs != 0, lcall, 0)
+    native.build_seg_blob_ptrs(ptrs, lc_eff, base, blob)
+    dead = ptrs == 0
+    if dead.any():
+        # canonical dummy segment byte for dead/padding lanes
+        blob[base[dead]] = 0x0F
+    return _finish_device_pack(blob, base, lcall, scall, pall, qall)
+
+
+def _finish_device_pack(blob, base, lcups, scups, p, qhl):
+    """Meta layout (lane_off, ms_n, sh_n, 0, 0, 0, p, qhl) appended to
+    the blob: one buffer, one upload.  Returns (buf,)."""
+    z = np.zeros_like(base)
+    meta = np.stack([base, lcups - scups, scups - 1, z, z, z,
+                     p.astype(np.int64), qhl.astype(np.int64)],
+                    axis=1).astype(np.int32)
+    return (np.concatenate([blob.view(np.uint32),
+                            meta.reshape(-1).view(np.uint32)]),)
+
+
+def _pack_device(pairs):
+    """Raw-bytes layout of a burst of (decoder, plan) pairs: each
+    lane's blob range is d[0:lcup-1] (byte lcup-2 OR'd 0xF); the
+    kernel reads MagSgn from its first lcup-scup bytes and MEL / VLC
+    from the rest, forward / backward.  Always returns (buf,)."""
+    if any(p.has_refine for _, p in pairs):
+        raise NotImplementedError(_ROADMAP_MULTIPASS)
+    return _pack_device_records(pairs)
+
+
+def _pack_dense(pairs):
+    """Dense-words layout of a burst: (words, meta)."""
+    if any(p.has_refine for _, p in pairs):
+        raise NotImplementedError(_ROADMAP_MULTIPASS)
+    return _pack_burst_fast(pairs)
+
+
+def upload(args, device) -> tuple:
+    """Host buffers (uint32 / int32 numpy) -> int32 tensors on device."""
+    return tuple(torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
+                 .to(device) for a in args)
+
+
+# ---------------------------------------------------------------------------
+# Decoder
+# ---------------------------------------------------------------------------
+
+class GpuDecoder(Decoder):
+    """Decoder whose Tier-1 and reconstruction run on ``device``
+    ('cuda' by default; 'cpu' runs the kernels' plain versions).
+
+    Tier-2 runs in record mode (flat numpy arrays, no per-codeblock
+    Python objects); the planner and packers consume the arrays.
+    ``raw`` selects the raw-bytes runner (True) or the dense-words one.
+    Streams outside this slice (multi-pass codeblocks, resilient
+    decode, more than 30 bit planes, broken codeblocks) raise
+    NotImplementedError naming their ROADMAP.md item."""
+
+    def __init__(self, data: bytes, device='cuda', raw: bool = True,
+                 **kwargs):
+        self.device = resolve_device(device)
+        self.raw = raw
+        if kwargs.get('resilient'):
+            raise NotImplementedError(_ROADMAP_COVERAGE)
+        kwargs.setdefault('record_t2', True)
+        super().__init__(data, **kwargs)
+
+    def decode(self) -> List[np.ndarray]:
+        if self._any_wide_band():
+            raise NotImplementedError(_ROADMAP_COVERAGE)
+        plan = _build_plan(self)
+        if plan is None:
+            raise NotImplementedError(_ROADMAP_COVERAGE)
+        if plan.has_refine:
+            raise NotImplementedError(_ROADMAP_MULTIPASS)
+        return self._decode_fast(plan)
+
+    def _any_wide_band(self) -> bool:
+        for st in self.tiles:
+            for c, comp in enumerate(st.geom.comps):
+                if not self.hdr.get_cod(c).is_reversible:
+                    continue
+                for res in comp.resolutions:
+                    for b in range(4):
+                        sb = res.bands[b]
+                        if sb is not None and not sb.empty \
+                                and sb.kmax >= 31:
+                            return True
+        return False
+
+    _DUMMY = b'\x00\x22'  # minimal well-formed segment for dead lanes
+
+    def _group_arrays(self, plan: _Plan) -> List[dict]:
+        """Host prep per group: padded word planes + per-lane dense
+        lengths (upper bounds; rows carry the guard fill beyond them)
+        + p / qhl."""
+        if plan.has_refine:
+            raise NotImplementedError(_ROADMAP_MULTIPASS)
+        out = []
+        s0 = 0
+        posa, lcupa, scupa, pa, qhla = plan.lanes[:5]
+        buf = self.data
+        for g in plan.groups:
+            sl = slice(s0, s0 + g.n_pad)
+            s0 += g.n_pad
+            datas = [bytes(buf[posa[i]:posa[i] + lcupa[i]])
+                     if posa[i] >= 0 else self._DUMMY
+                     for i in range(sl.start, sl.stop)]
+            lcups = lcupa[sl].copy()
+            scups = scupa[sl].copy()
+            streams = prep_cleanup_streams(datas, lcups, scups,
+                                           min_words=g.words)
+            wm, wv, ws = g.words
+            out.append({
+                'mel': streams['mel'], 'vlc': streams['vlc'],
+                'ms': streams['ms'],
+                'lm': np.minimum(wm, (scups - 1) * 8 // 32 + 3)
+                      .astype(np.int32),
+                'lv': np.minimum(wv, ((scups - 2) * 8 + 4) // 32 + 3)
+                      .astype(np.int32),
+                'ls': np.minimum(ws, (lcups - scups) * 8 // 32 + 3)
+                      .astype(np.int32),
+                'p': pa[sl].astype(np.int32),
+                'qhl': qhla[sl].copy(),
+            })
+        return out
+
+    def _lane_info(self, plan: _Plan):
+        """Per-lane raw segment info in meta order (groups in gid
+        order, members then padding), for the native dense prep."""
+        pos, lcup, scup, ps, qhl = plan.lanes[:5]
+        buf = self.data
+        datas = [bytes(buf[pos[i]:pos[i] + lcup[i]])
+                 if pos[i] >= 0 else self._DUMMY
+                 for i in range(len(pos))]
+        return (datas, lcup.copy(), scup.copy(), ps.copy(), qhl.copy())
+
+    def _decode_fast(self, plan: _Plan) -> List[np.ndarray]:
+        pairs = [(self, plan)]
+        args = _pack_device(pairs) if self.raw else _pack_dense(pairs)
+        runner = _make_runner(plan, 1, self.device, self.raw)
+        errs, outs = runner(*upload(args, self.device))
+        if bool(errs.any()):
+            raise ValueError('U_q exceeds missing_msbs + 2')
+        tile_planes = {
+            st.geom.idx: [p[0].cpu().numpy() for p in outs[i]]
+            for i, st in enumerate(self.tiles)}
+        return self._assemble(tile_planes)
+
+
+def decode_gpu(data: bytes, device='cuda', skip_res: int = 0,
+               raw: bool = True) -> List[np.ndarray]:
+    """Decode a .j2c codestream on ``device``; returns per-component
+    int32 planes (numpy).  ``raw`` picks the runner's input layout."""
+    return GpuDecoder(data, device=device, raw=raw,
+                      skipped_res_for_read=skip_res,
+                      skipped_res_for_recon=skip_res).decode()

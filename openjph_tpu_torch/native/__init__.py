@@ -1,0 +1,168 @@
+"""Native (C++) host kernels, built at first use with g++ and bound via
+ctypes: the byte-level serial work that feeds the device batches
+(packet-header parsing, segment blob layout, host unstuffing).
+
+The source is a copy of the JAX package's ``ojtpu_native.cpp``.  The
+library is required: record-mode Tier-2 and the packers have no numpy
+twin in this package, so a failed build raises instead of degrading.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import threading
+
+import numpy as np
+
+from ..gpu._build import load_library
+
+_DIR = os.path.dirname(os.path.abspath(__file__))
+_SRC = os.path.join(_DIR, 'ojtpu_native.cpp')
+_lock = threading.Lock()
+_lib = None
+
+
+def _load():
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        lib = load_library(
+            'ojtpu_native', [_SRC],
+            lambda out: ['g++', '-O3', '-march=native', '-shared',
+                         '-fPIC', '-o', out, _SRC, '-lpthread'])
+        lib.prep_cleanup_streams.restype = None
+        lib.prep_cleanup_streams.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int64]
+        lib.prep_cleanup_dense.restype = None
+        lib.prep_cleanup_dense.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int64]
+        lib.t2_parse_packet.restype = ctypes.c_int64
+        lib.t2_parse_packet.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p]
+        lib.t2_emit_packet.restype = ctypes.c_int64
+        lib.t2_emit_packet.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int64]
+        lib.build_seg_blob_ptrs.restype = None
+        lib.build_seg_blob_ptrs.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int64]
+        _lib = lib
+        return _lib
+
+
+def have_native() -> bool:
+    """True once the library is built and loaded; raises RuntimeError
+    when it cannot be built."""
+    return _load() is not None
+
+
+def _threads(nthreads: int) -> int:
+    return nthreads if nthreads > 0 else min(8, os.cpu_count() or 1)
+
+
+def prep_cleanup_streams(datas, lcups, scups, min_words=None):
+    """Batch unstuffer; same contract as bitprep.prep_cleanup_streams
+    (returns dict of uint32 [N, W]).
+
+    min_words: optional (mel_w, vlc_w, ms_w) lower bounds so callers
+    can bucket widths."""
+    lib = _load()
+    n = len(datas)
+    lcups = np.ascontiguousarray(lcups, dtype=np.int64)
+    scups = np.ascontiguousarray(scups, dtype=np.int64)
+    offsets = np.zeros(n + 1, dtype=np.int64)
+    for i, d in enumerate(datas):
+        offsets[i + 1] = offsets[i] + len(d)
+    blob = b''.join(bytes(d) for d in datas)
+    data = np.frombuffer(blob, dtype=np.uint8)
+
+    def words_for(bits_max):
+        return int((bits_max + 31) // 32 + 2)
+
+    mel_w = words_for(int((scups - 1).max()) * 8) if n else 3
+    vlc_w = words_for(4 + int((scups - 2).max()) * 8) if n else 3
+    ms_w = words_for(int((lcups - scups).max()) * 8) if n else 3
+    if min_words is not None:
+        mel_w = max(mel_w, min_words[0])
+        vlc_w = max(vlc_w, min_words[1])
+        ms_w = max(ms_w, min_words[2])
+    mel = np.zeros((n, mel_w), dtype=np.uint32)
+    vlc = np.zeros((n, vlc_w), dtype=np.uint32)
+    ms = np.zeros((n, ms_w), dtype=np.uint32)
+    lib.prep_cleanup_streams(
+        data.ctypes.data, offsets.ctypes.data, lcups.ctypes.data,
+        scups.ctypes.data, n,
+        mel.ctypes.data, mel_w, vlc.ctypes.data, vlc_w,
+        ms.ctypes.data, ms_w)
+    return {'mel': mel, 'vlc': vlc, 'ms': ms}
+
+
+def t2_parse_packet(data: np.ndarray, pos: int, data_left: int,
+                    may_use_sop: bool, uses_eph: bool, skip_data: bool,
+                    bands, out_cb, out_pos, st) -> int:
+    """Parse one packet header + body ranges (see ojtpu_native.cpp)."""
+    lib = _load()
+    return int(lib.t2_parse_packet(
+        data.ctypes.data, pos, data_left,
+        1 if may_use_sop else 0, 1 if uses_eph else 0,
+        1 if skip_data else 0,
+        bands.ctypes.data, out_cb.ctypes.data, out_pos.ctypes.data,
+        st.ctypes.data))
+
+
+def t2_emit_packet(bands: np.ndarray, recs: np.ndarray,
+                   out: np.ndarray) -> int:
+    """Emit one packet header (see ojtpu_native.cpp); returns header
+    length, -1 on overflow, -2 on unsupported num_passes."""
+    lib = _load()
+    return int(lib.t2_emit_packet(bands.ctypes.data, recs.ctypes.data,
+                                  out.ctypes.data, out.shape[0]))
+
+
+def build_seg_blob_ptrs(src_ptrs, lcups, lane_off, out: np.ndarray,
+                        nthreads: int = 0) -> np.ndarray:
+    """Pointer-batch blob builder: src_ptrs[i] is the absolute host
+    address of lane i's bytes (the caller keeps the owning buffers
+    alive); each lane's range is d[0:lcup-1] with byte lcup-2 OR'd
+    0xF.  Returns per-lane 0x7F-low byte counts, counted during the
+    copy."""
+    lib = _load()
+    src_ptrs = np.ascontiguousarray(src_ptrs, np.int64)
+    lcups = np.ascontiguousarray(lcups, np.int64)
+    lane_off = np.ascontiguousarray(lane_off, np.int64)
+    n = len(lane_off)
+    ev = np.zeros(n, np.int64)
+    lib.build_seg_blob_ptrs(
+        src_ptrs.ctypes.data, lcups.ctypes.data, n,
+        lane_off.ctypes.data, out.ctypes.data, ev.ctypes.data,
+        _threads(nthreads))
+    return ev
+
+
+def prep_cleanup_dense(blob: bytes, offsets, lcups, scups, meta,
+                       dense, nthreads: int = 0):
+    """Unstuff a lane batch straight into the shared dense word
+    buffer at the positions given by meta (see ojtpu_native.cpp)."""
+    lib = _load()
+    n = len(lcups)
+    offsets = np.ascontiguousarray(offsets, np.int64)
+    lcups = np.ascontiguousarray(lcups, np.int64)
+    scups = np.ascontiguousarray(scups, np.int64)
+    meta = np.ascontiguousarray(meta, np.int32)
+    data = np.frombuffer(blob, dtype=np.uint8)
+    lib.prep_cleanup_dense(
+        data.ctypes.data, offsets.ctypes.data, lcups.ctypes.data,
+        scups.ctypes.data, n, meta.ctypes.data, dense.ctypes.data,
+        _threads(nthreads))
