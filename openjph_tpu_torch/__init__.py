@@ -1,14 +1,15 @@
-"""openjph_tpu_torch: the HTJ2K (ISO/IEC 15444-15) decoder of openjph_tpu,
+"""openjph_tpu_torch: the HTJ2K (ISO/IEC 15444-15) codec of openjph_tpu,
 ported to PyTorch and CUDA for one NVIDIA H100.
 
-The host layer (codestream syntax, Tier-2, planning, packing) is a copy
-of the JAX package's; the device path is torch ops plus a hand-written
-CUDA kernel for the HT cleanup-pass decode.  Entry points run on the
-card (``device='cuda'``) unless the caller passes ``device='cpu'``,
-which runs the kernels' plain PyTorch versions; a CUDA request without
-a card raises RuntimeError.
+The host layer (codestream syntax, Tier-2, planning, packing, byte
+stuffing) is a copy of the JAX package's; the device paths are torch
+ops plus hand-written CUDA kernels for the HT cleanup-pass decode and
+encode.  Entry points run on the card (``device='cuda'``) unless the
+caller passes ``device='cpu'``, which runs the kernels' plain PyTorch
+versions; a CUDA request without a card raises RuntimeError.
 """
 from .core.message import OjphError, OjphWarning  # noqa: F401
+from .gpu.encode_pipeline import GpuEncoder, encode_gpu  # noqa: F401
 from .gpu.pipeline import GpuDecoder, decode_gpu  # noqa: F401
 
 
@@ -17,6 +18,12 @@ def decode(data: bytes, device='cuda', skip_res: int = 0,
     """Decode a .j2c codestream to per-component numpy planes on
     ``device`` (see :func:`decode_gpu`)."""
     return decode_gpu(data, device=device, skip_res=skip_res, raw=raw)
+
+
+def encode(planes, device='cuda', **kwargs) -> bytes:
+    """Encode per-component planes into a .j2c codestream on ``device``
+    (see :func:`encode_gpu`); the keywords are openjph_tpu.encode's."""
+    return encode_gpu(planes, device=device, **kwargs)
 
 
 __version__ = '0.1.0'

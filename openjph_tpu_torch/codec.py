@@ -1,10 +1,13 @@
-"""Host half of the HTJ2K decoder: markers -> geometry -> Tier-2 packet
-parse, and the final placement of tile planes on the canvas.
+"""Host halves of the HTJ2K codec.
 
-A copy of the decode half of the JAX package's ``codec.py`` (the
-structural flow of ojph_codestream_local.cpp / ojph_tile.cpp).  The
-device half — Tier-1, dequantization, inverse DWT, colour and sample
-conversion — lives in ``gpu/pipeline.py``.
+Decode: markers -> geometry -> Tier-2 packet parse, and the final
+placement of tile planes on the canvas.  Encode: marker segments and
+quantization parameters, tile-part division and codestream assembly.
+
+A copy of the JAX package's ``codec.py`` without its scalar Tier-1
+paths (the structural flow of ojph_codestream_local.cpp /
+ojph_tile.cpp).  The device halves live in ``gpu/pipeline.py``
+(decode) and ``gpu/encode_pipeline.py`` (encode).
 """
 from __future__ import annotations
 
@@ -12,14 +15,17 @@ import struct
 import threading
 from collections import OrderedDict
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
 from . import native
 from .core import markers as mk
-from .core.message import error as _err
+from .core.message import error as _err, warn as _wrn
 from .core.geometry import TileGeom, build_tile, build_tile_grid
+from .core.profiles import check_broadcast, check_imf
+from .core.quant import (COMP_Y, default_irrev_delta, make_irrev_qcd,
+                         make_qfactor_qcd, make_rev_qcd)
 from .core.t2 import CodedBlock, parse_precinct, precinct_iterator
 
 
@@ -262,3 +268,341 @@ class Decoder:
                 full[c][oy:oy + planes[c].shape[0],
                         ox:ox + planes[c].shape[1]] = planes[c]
         return full
+
+
+# ---------------------------------------------------------------------------
+# Encode: the host half (a copy of the JAX package's Encoder without its
+# scalar per-codeblock path; GpuEncoder supplies the tiles' packets)
+# ---------------------------------------------------------------------------
+
+class Encoder:
+    """Host half of the HTJ2K encoder: marker segments, quantization
+    parameters, tile-part division and codestream assembly.  A
+    subclass supplies ``_encode_tile(idx, tile_rect, planes)``, which
+    returns one tile's packets annotated ``(comp, res, bytes)``."""
+
+    def __init__(self, siz: mk.Siz, cod: mk.Cod,
+                 qcd: Optional[mk.Qcd] = None,
+                 base_delta: Optional[float] = None,
+                 cocs: Dict[int, mk.Cod] = None,
+                 qccs: Dict[int, mk.Qcd] = None,
+                 nlts: List[mk.NltSegment] = (),
+                 comments: List[mk.Com] = (),
+                 tlm_marker: bool = False,
+                 tilepart_div: int = 0,
+                 qfactor: Optional[int] = None,
+                 profile: Optional[str] = None,
+                 atks: List = (),
+                 dfs_list: List[mk.Dfs] = (),
+                 ht_passes: int = 1):
+        if siz.xtsiz == 0 and siz.ytsiz == 0:
+            siz.xtsiz = siz.xsiz + siz.xosiz
+            siz.ytsiz = siz.ysiz + siz.yosiz
+        self.siz = siz
+        self.cod = cod
+        self.cocs = cocs or {}
+        self.qccs = qccs or {}
+        self.atks = list(atks)
+        self.dfs_list = list(dfs_list)
+        # resolve Part-2 wavelet kernels / decomposition structures up
+        # front so is_reversible and geometry see them (the read path
+        # does the same in read_main_header)
+        atk_map = {a.index: a for a in self.atks}
+        for c in [cod] + list(self.cocs.values()):
+            if c.wavelet_kern >= 2 and c.atk is None:
+                if c.wavelet_kern not in atk_map:
+                    _err(0x00050131 if c.comp_idx is None else 0x00050132,
+                         f'COD/COC uses ATK kernel {c.wavelet_kern} but '
+                         'no such kernel was supplied')
+                c.atk = atk_map[c.wavelet_kern]
+            if c.dfs_idx is not None:
+                if c.comp_idx is None:
+                    _err(0x000500DB, 'DFS can only be signaled in a COC '
+                         '(the main COD carries the decomposition count)')
+                if not any(d.sdfs == c.dfs_idx for d in self.dfs_list):
+                    _err(0x000500DA, f'COC references DFS index '
+                         f'{c.dfs_idx} but no such marker was supplied')
+        self.nlts = list(nlts)
+        self.comments = list(comments)
+        self.tlm_marker = tlm_marker
+        self.tilepart_div = tilepart_div
+        if ht_passes not in (1, 2, 3):
+            _err(0x000500F3, 'ht_passes must be 1, 2 or 3')
+        self.ht_passes = ht_passes
+        if profile:
+            # IMF/BROADCAST validation; both force TLM + component-level
+            # tile parts (ojph_codestream_local.cpp:446-453, 544-551)
+            pf = profile.upper()
+            # validation happens on the finalized tile size
+            vsiz = siz
+            if pf == 'IMF':
+                check_imf(vsiz, cod)
+            elif pf == 'BROADCAST':
+                check_broadcast(vsiz, cod)
+            else:
+                _err(0x000300A1, f'unknown or unsupported profile '
+                     f'{profile!r}')
+            if self.tilepart_div & self.TILEPART_R:
+                # 0x000300C1 (IMF) / 0x000300B1 (BROADCAST) warnings
+                _wrn(0x000300C1 if pf == 'IMF' else 0x000300B1,
+                     f'in the {pf} profile, tile part divisions at the '
+                     'component level must be employed, while at the '
+                     'resolution level they are not allowed')
+            self.tlm_marker = True
+            self.tilepart_div = self.TILEPART_C
+        if qfactor is not None:
+            # Qfactor visual weighting: QCD carries the luma weights and
+            # every component gets an explicit QCC
+            # (param_qcd check_validity, ojph_params.cpp:1375-1407)
+            if cod.is_reversible:
+                _err(0x00050182, 'qfactor requires the irreversible path')
+            if not (1 <= qfactor <= 100):
+                _err(0x00050181, f'Qfactor must be between 1 and 100, '
+                     f'but was set to {qfactor}')
+            if base_delta is not None:
+                # param_qcd::set_irrev_quant (0x00040002)
+                _wrn(0x00040002, 'base_delta (qstep) is ignored, because '
+                     'qfactor is set')
+            nc = siz.num_comps
+            qcd = make_qfactor_qcd(cod.num_decomps,
+                                   siz.comps[0].bit_depth, qfactor,
+                                   COMP_Y, (1, 1))
+            for c in range(nc):
+                ct = c if (nc >= 3 and c < 3) else COMP_Y
+                ccod = self.cocs.get(c, cod)
+                self.qccs[c] = make_qfactor_qcd(
+                    ccod.num_decomps, siz.comps[c].bit_depth, qfactor,
+                    ct, (siz.comps[c].dx, siz.comps[c].dy), comp_idx=c)
+        if qcd is None:
+            bd = siz.comps[0].bit_depth
+            if cod.is_reversible:
+                qcd = make_rev_qcd(cod.num_decomps, bd, cod.mc_trans == 1,
+                                   kernel=cod.kernel)
+            else:
+                qcd = make_irrev_qcd(cod.num_decomps,
+                                     base_delta or default_irrev_delta(bd),
+                                     kernel=cod.kernel)
+        self.qcd = qcd
+        # components whose parameters differ need a QCC
+        for c in range(siz.num_comps):
+            ccod = self.cocs.get(c, cod)
+            if c in self.qccs:
+                continue
+            need = (ccod.num_decomps != cod.num_decomps
+                    or siz.comps[c].bit_depth != siz.comps[0].bit_depth
+                    or siz.comps[c].is_signed != siz.comps[0].is_signed
+                    or ccod.wavelet_kern != cod.wavelet_kern
+                    or ccod.uses_dfs)
+            if need:
+                bd = siz.comps[c].bit_depth
+                cdfs = None
+                if ccod.dfs_idx is not None:
+                    cdfs = next(d for d in self.dfs_list
+                                if d.sdfs == ccod.dfs_idx)
+                if ccod.is_reversible:
+                    self.qccs[c] = make_rev_qcd(
+                        ccod.num_decomps, bd,
+                        cod.mc_trans == 1 and c < 3, comp_idx=c,
+                        dfs=cdfs, kernel=ccod.kernel)
+                else:
+                    self.qccs[c] = make_irrev_qcd(
+                        ccod.num_decomps,
+                        base_delta or default_irrev_delta(bd),
+                        comp_idx=c, dfs=cdfs, kernel=ccod.kernel)
+        self.hdr = mk.MainHeader()
+        self.hdr.siz = siz
+        self.hdr.cod = cod
+        self.hdr.dfs = self.dfs_list
+        self.hdr.atks = atk_map
+        self.hdr.cocs = self.cocs
+        self.hdr.qcd = self.qcd
+        self.hdr.qccs = self.qccs
+        for seg in self.nlts:
+            self.hdr.nlt.add(seg)
+
+    def _get_cod(self, c):
+        return self.cocs.get(c, self.cod)
+
+    def _get_qcd(self, c):
+        return self.qccs.get(c, self.qcd)
+
+    # tile-part division flags (ojph_codestream.h OJPH_TILEPART_*)
+    TILEPART_R = 1
+    TILEPART_C = 2
+
+    def _corrected_tilepart_div(self) -> int:
+        """Per-progression-order correction of the requested tile-part
+        divisions (codestream::write_headers,
+        ojph_codestream_local.cpp:582-622)."""
+        div = self.tilepart_div
+        po = self.cod.prog_order
+        if po in (mk.ProgOrder.LRCP, mk.ProgOrder.RLCP) \
+                and div == self.TILEPART_C:
+            div |= self.TILEPART_R
+        if po == mk.ProgOrder.RPCL and (div & self.TILEPART_C):
+            _wrn(0x00030021,
+                 'for RPCL progression, having tilepart divisions at the '
+                 'component level means a tilepart for every precinct, '
+                 'which is not supported; component divisions dropped')
+            div &= ~self.TILEPART_C
+        if po == mk.ProgOrder.PCRL:
+            if div:
+                _wrn(0x00030022,
+                     'for PCRL progression, tilepart divisions at the '
+                     'component or resolution level mean a tile part for '
+                     'every precinct, which is not supported; divisions '
+                     'dropped')
+            div = 0
+        if po == mk.ProgOrder.CPRL and (div & self.TILEPART_R):
+            _wrn(0x00030023,
+                 'for CPRL progression, having tilepart divisions at the '
+                 'resolution level means a tile part for every precinct, '
+                 'which is not supported; resolution divisions dropped')
+            div &= ~self.TILEPART_R
+        return div
+
+    def _split_tileparts(self, packets):
+        """Group annotated packets [(c, r, bytes)] into tile-parts
+        [(tpsot, tnsot, payload)] (tile::flush,
+        ojph_tile.cpp:584-774)."""
+        div = self._corrected_tilepart_div()
+        nc = self.siz.num_comps
+        maxd = max(self._get_cod(c).num_decomps for c in range(nc))
+        if div == 0:
+            return [(0, 1, b''.join(p for _, _, p in packets))]
+        if div == self.TILEPART_C:  # CPRL only
+            parts = []
+            for c in range(nc):
+                payload = b''.join(p for pc, _, p in packets if pc == c)
+                parts.append((c, nc, payload))
+            return parts
+        if div == self.TILEPART_R:
+            parts = []
+            for r in range(maxd + 1):
+                payload = b''.join(p for _, pr, p in packets if pr == r)
+                parts.append((r, maxd + 1, payload))
+            return parts
+        # R | C: LRCP/RLCP only — one part per (r, c)
+        parts = []
+        tn = nc * (maxd + 1)
+        for r in range(maxd + 1):
+            for c in range(nc):
+                if r > self._get_cod(c).num_decomps:
+                    continue
+                payload = b''.join(p for pc, pr, p in packets
+                                   if pc == c and pr == r)
+                parts.append((c + r * nc, tn, payload))
+        return parts
+
+    def encode(self, planes: List[np.ndarray]) -> bytes:
+        """Encode per-component sample planes into a .j2c codestream."""
+        tile_rects = build_tile_grid(self.siz)
+        return self.assemble([self._encode_tile(idx, tr, planes)
+                              for idx, tr in enumerate(tile_rects)])
+
+    def assemble(self, tiles_packets) -> bytes:
+        """Assemble per-tile packet lists (in tile index order) into
+        the codestream: main header, SOT/SOD tile-parts (with the
+        configured tile-part divisions), optional TLM, EOC."""
+        header = mk.write_main_header(
+            self.siz, self.cod, self.qcd,
+            cocs=list(self.cocs.values()), qccs=list(self.qccs.values()),
+            nlts=self.nlts, comments=self.comments,
+            version_comment=b'OpenJPH-TPU Ver 0.1.0.',
+            atks=self.atks, dfs_list=self.dfs_list)
+        body = bytearray()
+        tlm_pairs = []
+        for idx, packets in enumerate(tiles_packets):
+            for (tpsot, tnsot, payload) in self._split_tileparts(packets):
+                sot = mk.Sot(idx, len(payload) + 14, tpsot, tnsot)
+                body += sot.to_bytes()
+                body += struct.pack('>H', mk.Marker.SOD)
+                body += payload
+                tlm_pairs.append((idx, len(payload) + 14))
+        out = header
+        if self.tlm_marker:
+            out += mk.Tlm(tlm_pairs).to_bytes()
+        out += bytes(body)
+        out += struct.pack('>H', mk.Marker.EOC)
+        return out
+
+
+def normalize_planes(planes) -> List[np.ndarray]:
+    """(H,W) / (H,W,C) array or list of planes -> list of planes."""
+    if isinstance(planes, np.ndarray):
+        return [planes[..., i] for i in range(planes.shape[-1])] \
+            if planes.ndim == 3 else [planes]
+    return list(planes)
+
+
+def build_encoder(shape, nc: int, encoder_cls, bit_depth: int = 8,
+                  is_signed: bool = False,
+                  reversible: bool = True, num_decomps: int = 5,
+                  prog_order: int = mk.ProgOrder.RPCL,
+                  color_transform: Optional[bool] = None,
+                  base_delta: Optional[float] = None,
+                  block_size=(64, 64), tlm_marker: bool = False,
+                  tile_size=None, tile_offset=(0, 0),
+                  image_offset=(0, 0),
+                  precincts=None, downsamplings=None,
+                  qfactor: Optional[int] = None, tileparts: str = None,
+                  profile: Optional[str] = None,
+                  comments=None, ht_passes: int = 1,
+                  vert_causal: bool = False) -> 'Encoder':
+    """Build an Encoder from the convenience-kwarg surface; ``shape``
+    is the (H, W) of component 0.  ``encoder_cls`` is the encoder
+    class (or a callable taking the Encoder arguments), e.g.
+    gpu.encode_pipeline.GpuEncoder."""
+    siz = mk.Siz()
+    siz.xosiz, siz.yosiz = image_offset
+    siz.xsiz = shape[1] + siz.xosiz
+    siz.ysiz = shape[0] + siz.yosiz
+    if tile_size is not None:
+        siz.xtsiz, siz.ytsiz = tile_size
+        siz.xtosiz, siz.ytosiz = tile_offset
+    for c in range(nc):
+        ds = downsamplings[c] if downsamplings else (1, 1)
+        siz.comps.append(mk.CompInfo(bit_depth, is_signed, ds[0], ds[1]))
+    cod = mk.Cod()
+    if isinstance(prog_order, str):  # "RPCL" etc., as in ojph_compress
+        prog_order = mk.ProgOrder[prog_order.upper()]
+    cod.prog_order = prog_order
+    cod.num_decomps = num_decomps
+    cod.log_block_w = block_size[0].bit_length() - 1
+    cod.log_block_h = block_size[1].bit_length() - 1
+    cod.wavelet_kern = mk.DWT_REV53 if reversible else mk.DWT_IRV97
+    if vert_causal:
+        cod.block_style |= mk.VERT_CAUSAL_MODE
+    if color_transform is None:
+        color_transform = (nc >= 3 and not any(
+            (siz.comps[c].dx != 1 or siz.comps[c].dy != 1)
+            for c in range(3))) if nc >= 3 else False
+    cod.mc_trans = 1 if color_transform else 0
+    if precincts is not None:
+        cod.scod |= 1
+        ps = []
+        for r in range(num_decomps + 1):
+            pw, ph = precincts[min(r, len(precincts) - 1)]
+            ps.append((pw.bit_length() - 1) | ((ph.bit_length() - 1) << 4))
+        # reference stores precincts from res 0 upward
+        cod.precinct_sizes = ps
+    if qfactor is not None:
+        cod.wavelet_kern = mk.DWT_IRV97
+    tp_div = 0
+    if tileparts:
+        tp = tileparts.upper()
+        if tp not in ('R', 'C', 'RC', 'CR'):
+            _err(0x000300F1, "tileparts must be 'R', 'C', or 'RC'")
+        tp_div = (Encoder.TILEPART_R if 'R' in tp else 0) \
+            | (Encoder.TILEPART_C if 'C' in tp else 0)
+    coms = []
+    for com in comments or ():
+        if isinstance(com, mk.Com):
+            coms.append(com)
+        else:
+            data = com.encode('latin-1') if isinstance(com, str) else com
+            coms.append(mk.Com(1, bytes(data)))
+    return encoder_cls(siz, cod, base_delta=base_delta,
+                       tlm_marker=tlm_marker, qfactor=qfactor,
+                       tilepart_div=tp_div, profile=profile,
+                       comments=coms, ht_passes=ht_passes)

@@ -1,0 +1,486 @@
+"""Fused frame encode on one GPU: sample conversion -> colour transform
+-> forward DWT pyramid -> quantization -> the HT cleanup encoder (the
+CUDA kernel), with byte stuffing and Tier-2 packetization on the host.
+
+Mirror image of the decode plan (pipeline.py) and a port of the JAX
+package's tpu/encode_pipeline.py: band planes are carved into
+rectangular strips of same-shape codeblocks, batched by block width
+with height padding (each lane's quad-row limit ``qhl`` stops its
+emission at its own rows), and one kernel launch encodes a lane group.
+The kernel emits dense MEL / VLC / MagSgn words per lane; the runner
+gathers the used prefix of every lane's streams into one buffer on the
+device, the host copies it once and the native stuffer
+(pack_from_dense) turns it into cleanup segments
+(ojph_block_encoder.cpp:273-533; the OpenJPH encoder emits only the
+cleanup pass).  A burst of same-geometry frames is batched along the
+lanes: frame f of group g occupies lanes [f*n_pad, (f+1)*n_pad).
+"""
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass, field
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from .. import native
+from ..codec import Encoder, build_encoder, normalize_planes
+from ..core.geometry import build_tile
+from ..core.t2 import CodedBlock, encode_precinct, precinct_iterator
+from . import color as clr
+from . import dwt
+from .block_encode_cuda import encode_cleanup
+from .pipeline import resolve_device
+from .quant import tx_to_cb
+
+_ROADMAP_MULTIPASS = ('multi-pass (SigProp/MagRef) encoding is not ported '
+                      'yet: ROADMAP.md Queue A, "Multi-pass refinement"')
+_ROADMAP_COVERAGE = ('{} is not ported to the fused encode yet: '
+                     'ROADMAP.md Queue A, "Resilient decode and fused-path '
+                     'coverage contracts"')
+
+
+def _ebucket(n: int) -> int:
+    """Word-cap bucket (pow2 then 128-multiples) for the encoder's output
+    rows; every cap is a multiple of _CHUNK."""
+    b = 32
+    while b < n and b < 1024:
+        b *= 2
+    if n <= b:
+        return b
+    return -(-n // 128) * 128
+
+
+_CHUNK = 32  # words
+
+
+def _compact_chunks(cats, chunk_idx):
+    """The used prefix of every (lane, stream) word row, gathered into one
+    dense buffer at _CHUNK-word granularity: every stream starts on a
+    chunk boundary of its group's rows, and the host computes the source
+    chunk of each output chunk, so the gather is one index_select."""
+    src = torch.cat([c.reshape(-1) for c in cats]).reshape(-1, _CHUNK)
+    return src.index_select(0, chunk_idx).reshape(-1)
+
+
+@dataclass
+class _EncGroup:
+    gid: int
+    w: int
+    h: int = 0
+    # strips: (lane0, nrows, ncols, h_true, band_id, y0, x0)
+    strips: list = field(default_factory=list)
+    # per lane: (band_id, block_index_in_band, h_true)
+    lanes: list = field(default_factory=list)
+    p: list = field(default_factory=list)        # 31 - kmax per lane
+    thresh: list = field(default_factory=list)   # zero-block threshold
+    n_pad: int = 0                               # lanes, padded to 8
+    caps: tuple = (0, 0, 0)                      # dense word caps
+
+
+@dataclass
+class _EncPlan:
+    key: tuple
+    groups: List[_EncGroup]
+    # band_id -> (comp, res, band, kmax, delta, reversible, H, W)
+    bands: List[tuple]
+    # per comp: (reversible, bd, sgn, nlt3, res specs, wavelet kernel)
+    comps: List[tuple]
+    mct: bool
+
+
+class _EncRunner:
+    """The fused encode of ``nframes`` same-geometry frames on
+    ``device``.  ``graph(*planes)`` takes per component a [nframes, h,
+    w] tensor of the narrow upload dtype and returns per lane group its
+    sample batch (int32 [nframes*n_pad, hp, wp]) and zero-block flags;
+    ``tier1(batches)`` runs the HT cleanup encoder per group and returns
+    (cats, aux): the per-group word rows [nframes*n_pad, wm+wv+ws] and
+    one int32 buffer of every group's bit counts, then its non-zero
+    flags [nframes, lanes], then its overflow flags.  Calling the
+    runner does both."""
+
+    def __init__(self, plan: _EncPlan, nframes: int, device):
+        self.plan = plan
+        self.F = nframes
+        self.device = torch.device(device)
+        self.lane_p, self.lane_qhl, self.thresh = [], [], []
+        for g in plan.groups:
+            pad = g.n_pad - len(g.lanes)
+            p = np.pad(np.array(g.p, np.int32), (0, pad), mode='edge')
+            qhl = np.pad(np.array([(h_t + 1) // 2 for (_, _, h_t) in
+                                   g.lanes], np.int32), (0, pad))
+            self.lane_p.append(torch.from_numpy(np.tile(p, nframes))
+                               .to(self.device))
+            self.lane_qhl.append(torch.from_numpy(np.tile(qhl, nframes))
+                                 .to(self.device))
+            self.thresh.append(torch.tensor(g.thresh, dtype=torch.int64,
+                                            device=self.device))
+
+    def __call__(self, *planes):
+        return self.tier1(self.graph(*planes))
+
+    def graph(self, *planes):
+        plan, F = self.plan, self.F
+        conv = []
+        for ci, (rev, bd, sgn, nlt3, _, _) in enumerate(plan.comps):
+            pl32 = planes[ci].to(torch.int32)
+            if rev:
+                conv.append(clr.rev_convert_in(pl32, bd, sgn, nlt3))
+            else:
+                conv.append(clr.irv_convert_to_float(pl32, bd, sgn, nlt3))
+        if plan.mct:
+            fwd = clr.rct_forward if plan.comps[0][0] else clr.ict_forward
+            conv[0], conv[1], conv[2] = fwd(conv[0], conv[1], conv[2])
+
+        # DWT pyramids -> per-band sign-magnitude planes and magnitudes
+        smag = [None] * len(plan.bands)
+        mags = [None] * len(plan.bands)
+        for ci, (rev, _, _, _, res_specs, kern) in enumerate(plan.comps):
+            cur = conv[ci]
+            band_planes = {}
+            for r in range(len(res_specs) - 1, 0, -1):
+                bids, h_even, v_even = res_specs[r]
+                ll, hl, lh, hh = dwt.fwd_dwt2d(cur, h_even, v_even, rev,
+                                               kern)
+                band_planes[bids[0]] = hl
+                band_planes[bids[1]] = lh
+                band_planes[bids[2]] = hh
+                cur = ll
+            band_planes[res_specs[0][0][0]] = cur
+            for bid, bp in band_planes.items():
+                (_, _, _, kmax, delta, rev_b, _, _) = plan.bands[bid]
+                smag[bid], mags[bid] = tx_to_cb(bp, kmax, delta, rev_b)
+
+        # strips -> group batches, and the zero-block flags
+        out = []
+        for g, thresh in zip(plan.groups, self.thresh):
+            wp = ((g.w + 3) // 4) * 4
+            hp = ((g.h + 1) // 2) * 2
+            buf = torch.zeros((F, g.n_pad, hp, wp), dtype=torch.int32,
+                              device=self.device)
+            mx = torch.zeros((F, len(g.lanes)), dtype=torch.int64,
+                             device=self.device)
+            for (lane0, nrows, ncols, h_t, bid, y0, x0) in g.strips:
+                nl = nrows * ncols
+                sl = (slice(None), slice(y0, y0 + nrows * h_t),
+                      slice(x0, x0 + ncols * g.w))
+
+                def blocks(a):
+                    return a[sl].reshape(F, nrows, h_t, ncols, g.w) \
+                        .permute(0, 1, 3, 2, 4).reshape(F, nl, h_t, g.w)
+
+                buf[:, lane0:lane0 + nl, :h_t, :g.w] = blocks(smag[bid])
+                mx[:, lane0:lane0 + nl] = blocks(mags[bid]).amax((2, 3))
+            # the OR of a block's magnitudes reaches the power-of-two
+            # threshold exactly when their maximum does
+            out.append((buf.reshape(F * g.n_pad, hp, wp), mx >= thresh))
+        return out
+
+    def tier1(self, batches):
+        cats, bits, nzs, ovfs = [], [], [], []
+        for g, (buf, nz), p, qhl in zip(self.plan.groups, batches,
+                                        self.lane_p, self.lane_qhl):
+            cat, b, ovf = encode_cleanup(buf, p, g.w, g.h, g.caps, qhl)
+            cats.append(cat)
+            bits.append(b.reshape(-1))
+            nzs.append(nz.reshape(-1).to(torch.int32))
+            ovfs.append(ovf.to(torch.int32))
+        # one small aux buffer -> one host fetch
+        return tuple(cats), torch.cat(bits + nzs + ovfs)
+
+
+def _make_enc_runner(plan: _EncPlan, nframes: int = 1,
+                     device='cuda') -> _EncRunner:
+    """The fused encode of ``nframes`` frames of ``plan``'s geometry on
+    ``device``."""
+    return _EncRunner(plan, nframes, resolve_device(device))
+
+
+def _fetch_outs(plan: _EncPlan, cats, aux, nframes: int):
+    """Device outputs -> host: the aux buffer first, then the used word
+    prefix of every lane's streams, compacted on the device and copied
+    in one transfer.  Raises RuntimeError on any overflow (the caps are
+    worst-case bounds, so an overflow is a fault, not a fallback).
+    Returns (dense uint32 words, per group the pack_from_dense meta
+    [nframes*n_pad, 6] and the non-zero flags [nframes, lanes])."""
+    F = nframes
+    aux = aux.cpu().numpy()
+    pos = 0
+    bits_all = []
+    for g in plan.groups:
+        bits_all.append(aux[pos:pos + F * g.n_pad * 3]
+                        .reshape(F * g.n_pad, 3).astype(np.int64))
+        pos += F * g.n_pad * 3
+    nz_all = []
+    for g in plan.groups:
+        nl = F * len(g.lanes)
+        nz_all.append(aux[pos:pos + nl].reshape(F, len(g.lanes)) != 0)
+        pos += nl
+    if aux[pos:].any():
+        raise RuntimeError('HT cleanup encoder: a lane overflowed its word '
+                           'caps')
+    cnt_l, sb_l = [], []
+    base = 0
+    for g, bits in zip(plan.groups, bits_all):
+        nl = F * g.n_pad
+        wm, wv, _ = g.caps
+        wtot = sum(g.caps)
+        # stream si of lane l sits at flat [base + l*wtot + off[si], ...)
+        off = np.array([0, wm, wm + wv], np.int64)
+        lanes = np.arange(nl, dtype=np.int64)[:, None]
+        sb_l.append((base + lanes * wtot + off[None, :]).reshape(-1))
+        cnt_l.append(((bits + 31) // 32).reshape(-1))
+        base += nl * wtot
+    cnts = np.concatenate(cnt_l)
+    seg_base = np.concatenate(sb_l)
+    # chunk-aligned layout: each segment starts on a chunk boundary
+    cnt_ch = (cnts + _CHUNK - 1) // _CHUNK
+    ch_ends = np.cumsum(cnt_ch)
+    ch_off = np.concatenate([[0], ch_ends[:-1]]).astype(np.int64)
+    total_ch = int(ch_ends[-1]) if len(ch_ends) else 0
+    chunk_idx = (np.repeat((seg_base // _CHUNK) - ch_off, cnt_ch)
+                 + np.arange(total_ch))
+    dense = _compact_chunks(cats, torch.from_numpy(chunk_idx)
+                            .to(cats[0].device)).cpu().numpy() \
+        .view(np.uint32)
+    if dense.size == 0:
+        dense = np.zeros(1, np.uint32)
+    seg_off = ch_off * _CHUNK
+    metas = []
+    at = 0
+    for g, bits in zip(plan.groups, bits_all):
+        nl = F * g.n_pad
+        meta = np.empty((nl, 6), np.int64)
+        meta[:, 0::2] = seg_off[at:at + nl * 3].reshape(nl, 3)
+        meta[:, 1::2] = bits
+        at += nl * 3
+        metas.append(meta)
+    return dense, metas, nz_all
+
+
+class GpuEncoder(Encoder):
+    """Encoder whose sample conversion, colour transform, DWT,
+    quantization and HT cleanup encoder run on ``device`` ('cuda' by
+    default; 'cpu' runs the kernel's plain version).  Byte stuffing and
+    Tier-2 run on the host.  Configurations outside this slice
+    (multi-pass codeblocks, Part-2 DFS structures, bands of 31 or more
+    bit planes) raise NotImplementedError naming their ROADMAP.md
+    item."""
+
+    def __init__(self, *args, device='cuda', **kwargs):
+        self.device = resolve_device(device)
+        super().__init__(*args, **kwargs)
+
+    def _build_enc_plan(self, geom) -> _EncPlan:
+        if self.ht_passes != 1:
+            raise NotImplementedError(_ROADMAP_MULTIPASS)
+        groups: Dict[int, _EncGroup] = {}
+        bands: List[tuple] = []
+        comps = []
+        nc = self.siz.num_comps
+        for c in range(nc):
+            cod = self._get_cod(c)
+            rev = cod.is_reversible
+            comp = geom.comps[c]
+            res_specs = []
+            for r in range(comp.num_decomps + 1):
+                res = comp.resolutions[r]
+                bids = []
+                for b in ([0] if r == 0 else [1, 2, 3]):
+                    sb = res.bands[b]
+                    if sb is None:
+                        raise NotImplementedError(_ROADMAP_COVERAGE.format(
+                            'a Part-2 DFS decomposition structure'))
+                    if sb.kmax >= 31:
+                        raise NotImplementedError(_ROADMAP_COVERAGE.format(
+                            'a band of 31 or more bit planes'))
+                    bid = len(bands)
+                    bands.append((c, r, b, sb.kmax, float(sb.delta),
+                                  rev, sb.rect.h, sb.rect.w))
+                    bids.append(bid)
+                    run = None  # (lane0, ncols, h_true, y0, x0, gid)
+                    for bi, g in enumerate(sb.blocks):
+                        # lanes group by block width only: shorter
+                        # blocks pad with zero rows and stop at qhl
+                        grp = groups.get(g.rect.w)
+                        if grp is None:
+                            grp = _EncGroup(len(groups), g.rect.w)
+                            groups[g.rect.w] = grp
+                        lane = len(grp.lanes)
+                        grp.lanes.append((bid, bi, g.rect.h))
+                        grp.h = max(grp.h, g.rect.h)
+                        grp.p.append(31 - sb.kmax)
+                        grp.thresh.append(1 << (31 - sb.kmax))
+                        y0 = g.rect.y0 - sb.rect.y0
+                        x0 = g.rect.x0 - sb.rect.x0
+                        if run is not None \
+                                and run[5] == grp.gid \
+                                and run[2] == g.rect.h and run[3] == y0 \
+                                and run[4] + run[1] * g.rect.w == x0 \
+                                and lane == run[0] + run[1]:
+                            run = (run[0], run[1] + 1, run[2], run[3],
+                                   run[4], run[5])
+                        else:
+                            if run is not None:
+                                _group_of(groups, run[5]).strips.append(
+                                    (run[0], 1, run[1], run[2], bid,
+                                     run[3], run[4]))
+                            run = (lane, 1, g.rect.h, y0, x0, grp.gid)
+                    if run is not None:
+                        _group_of(groups, run[5]).strips.append(
+                            (run[0], 1, run[1], run[2], bid, run[3],
+                             run[4]))
+                res_specs.append((tuple(bids),
+                                  (res.rect.x0 & 1) == 0,
+                                  (res.rect.y0 & 1) == 0))
+            comps.append((rev, self.siz.comps[c].bit_depth,
+                          self.siz.comps[c].is_signed,
+                          self.hdr.nlt.type3_for(c), tuple(res_specs),
+                          cod.kernel))
+        glist = sorted(groups.values(), key=lambda g: g.gid)
+        # vertical strip merge
+        for g in glist:
+            merged = []
+            for (lane0, nrows, ncols, h_t, bid, y0, x0) in g.strips:
+                if merged:
+                    m = merged[-1]
+                    if m[4] == bid and m[2] == ncols and m[3] == h_t \
+                            and m[6] == x0 and m[5] + m[1] * h_t == y0 \
+                            and m[0] + m[1] * m[2] == lane0:
+                        merged[-1] = (m[0], m[1] + 1, m[2], m[3], m[4],
+                                      m[5], m[6])
+                        continue
+                merged.append((lane0, nrows, ncols, h_t, bid, y0, x0))
+            g.strips = merged
+        mct = self.cod.mc_trans == 1 and nc >= 3
+        for g in glist:
+            # worst-case dense output words per lane: overflow cannot
+            # happen, and the flag is checked all the same
+            qw = (g.w + 1) >> 1
+            qh = (g.h + 1) >> 1
+            pairs = (qw + 1) >> 1
+            kx = 31 - min(g.p)
+            g.caps = (_ebucket(qh * pairs * 18 // 32 + 2),
+                      _ebucket(qh * pairs * 34 // 32 + 2),
+                      _ebucket(qw * qh * 4 * (kx + 1) // 32 + 2))
+            g.n_pad = -(-len(g.lanes) // 8) * 8
+        key = (tuple((g.gid, g.w, g.h, len(g.lanes), tuple(g.strips),
+                      tuple(g.p), g.caps) for g in glist),
+               tuple(bands), tuple(comps), mct)
+        return _EncPlan(key, glist, bands, comps, mct)
+
+    def _encode_tile(self, idx: int, tr, planes: List[np.ndarray]) \
+            -> List[tuple]:
+        geom = build_tile(self.hdr, idx, tr)
+        nc = self.siz.num_comps
+        plan = self._build_enc_plan(geom)
+        runner = _make_enc_runner(plan, 1, self.device)
+        tplanes = [torch.from_numpy(
+            _narrow_tile_plane(self.siz, geom, c, planes[c])[None])
+            .to(self.device) for c in range(nc)]
+        cats, aux = runner(*tplanes)
+        coded = _empty_coded(geom, nc)
+        self._consume_outs(plan, cats, aux, [coded])
+        return _tile_packets(self, geom, coded)
+
+    def _consume_outs(self, plan, cats, aux, codeds):
+        """Fetch a runner's outputs and fill each frame's coded-block
+        structure (``codeds``, one per frame of the runner)."""
+        self._stuff(plan, *_fetch_outs(plan, cats, aux, len(codeds)),
+                    codeds)
+
+    def _stuff(self, plan, dense, metas, nz_all, codeds):
+        """Host byte stuffing (pack_from_dense) of every frame's lanes
+        into cleanup segments, filling ``codeds``."""
+        for g, meta, nz in zip(plan.groups, metas, nz_all):
+            L = len(g.lanes)
+            # stuffing can expand the packed bytes by up to 8/7
+            stride = int(meta[:, 1::2].sum(axis=1).max()) // 7 + 64
+            # every frame's real lanes (not the padding) in one call
+            real = meta.reshape(len(codeds), g.n_pad, 6)[:, :L]
+            out, lens = native.pack_from_dense(dense, real.reshape(-1, 6),
+                                               out_stride=stride)
+            for f, coded in enumerate(codeds):
+                self._fill_coded(plan, g, coded, out[f * L:(f + 1) * L],
+                                 lens[f * L:(f + 1) * L], nz[f])
+
+    def _fill_coded(self, plan, g, coded, out, lens, nz):
+        for lane, (bid, bi, h_t) in enumerate(g.lanes):
+            (c, r, b, kmax, _, _, _, _) = plan.bands[bid]
+            cb = coded[c][r][b][bi]
+            if not nz[lane]:
+                continue  # zero block
+            if lens[lane] == 0:
+                raise RuntimeError('HT cleanup encoder: a segment '
+                                   'overflowed the host stuffer')
+            cb.missing_msbs = kmax - 1
+            cb.num_passes = 1
+            cb.data = bytes(out[lane, :lens[lane]])
+            cb.pass_length[0] = int(lens[lane])
+
+
+def _group_of(groups: Dict[int, _EncGroup], gid: int) -> _EncGroup:
+    return next(g for g in groups.values() if g.gid == gid)
+
+
+def encode_gpu(planes, device='cuda', **kwargs) -> bytes:
+    """Encode planes ((H, W) / (H, W, C) array or list of planes) into a
+    .j2c codestream on ``device``.  Same keyword surface as
+    openjph_tpu.encode."""
+    planes = normalize_planes(planes)
+    enc = build_encoder(planes[0].shape, len(planes),
+                        functools.partial(GpuEncoder, device=device),
+                        **kwargs)
+    return enc.encode([np.asarray(p) for p in planes])
+
+
+def _narrow_dtype_for(siz, c):
+    """Smallest upload dtype for component c's samples."""
+    bd = siz.comps[c].bit_depth
+    sgn = siz.comps[c].is_signed
+    if bd <= 8:
+        return np.int8 if sgn else np.uint8
+    if bd <= 16:
+        return np.int16 if sgn else np.uint16
+    return np.int32
+
+
+def _narrow_tile_plane(siz, geom, c, plane):
+    """Slice component c's tile plane and narrow it to the smallest
+    upload dtype; the runner widens on the device."""
+    comp = geom.comps[c]
+    dx, dy = siz.comps[c].dx, siz.comps[c].dy
+    ox = comp.rect.x0 - (-(-siz.xosiz // dx))
+    oy = comp.rect.y0 - (-(-siz.yosiz // dy))
+    tp = plane[oy:oy + comp.rect.h, ox:ox + comp.rect.w]
+    return np.ascontiguousarray(tp.astype(_narrow_dtype_for(siz, c)))
+
+
+def _empty_coded(geom, nc):
+    """Fresh coded-block structure for one tile."""
+    coded = [[[None] * 4
+              for _ in range(geom.comps[c].num_decomps + 1)]
+             for c in range(nc)]
+    for c in range(nc):
+        comp = geom.comps[c]
+        for r in range(comp.num_decomps + 1):
+            for b in ([0] if r == 0 else [1, 2, 3]):
+                sb = comp.resolutions[r].bands[b]
+                if sb is not None and not sb.empty:
+                    coded[c][r][b] = [CodedBlock() for _ in sb.blocks]
+    return coded
+
+
+def _tile_packets(enc, geom, coded):
+    """Emit one tile's packets in progression order, annotated
+    (comp, res) for tile-part division (tile::flush prog-order state
+    machines, ojph_tile.cpp:584-774)."""
+    cod = enc.cod
+    packets = []
+    for (c, r, pidx) in precinct_iterator(geom, cod.prog_order):
+        res = geom.comps[c].resolutions[r]
+        packets.append((c, r, encode_precinct(
+            res, pidx, coded[c][r], cod.uses_eph, cod.uses_sop)))
+    return packets

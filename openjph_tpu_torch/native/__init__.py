@@ -1,6 +1,7 @@
 """Native (C++) host kernels, built at first use with g++ and bound via
-ctypes: the byte-level serial work that feeds the device batches
-(packet-header parsing, segment blob layout, host unstuffing).
+ctypes: the byte-level serial work around the device batches
+(packet-header parsing and emission, segment blob layout, host
+unstuffing, and the encoder's byte stuffing of device-packed words).
 
 The source is a copy of the JAX package's ``ojtpu_native.cpp``.  The
 library is required: record-mode Tier-2 and the packers have no numpy
@@ -52,6 +53,11 @@ def _load():
         lib.t2_emit_packet.restype = ctypes.c_int64
         lib.t2_emit_packet.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int64]
+        lib.pack_from_dense.restype = None
+        lib.pack_from_dense.argtypes = [
+            ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
             ctypes.c_int64]
         lib.build_seg_blob_ptrs.restype = None
         lib.build_seg_blob_ptrs.argtypes = [
@@ -166,3 +172,26 @@ def prep_cleanup_dense(blob: bytes, offsets, lcups, scups, meta,
         data.ctypes.data, offsets.ctypes.data, lcups.ctypes.data,
         scups.ctypes.data, n, meta.ctypes.data, dense.ctypes.data,
         _threads(nthreads))
+
+
+def pack_from_dense(dense: np.ndarray, meta: np.ndarray, out_stride: int):
+    """Assemble cleanup segments from device-packed dense bit streams.
+
+    dense: uint32 buffer; meta int64 [n, 6] rows of (mel_off,
+    mel_bits, vlc_off, vlc_bits, ms_off, ms_bits).  Returns
+    (out [n, out_stride] uint8, lens [n] int64; 0 = overflow)."""
+    lib = _load()
+    n = meta.shape[0]
+    dense = np.ascontiguousarray(dense, np.uint32)
+    meta = np.ascontiguousarray(meta, np.int64)
+    if n and (int(meta.min()) < 0 or int(
+            (meta[:, 0::2] + (meta[:, 1::2] + 31) // 32).max())
+            > dense.shape[0]):
+        raise ValueError('pack_from_dense: a stream lies outside the '
+                         'buffer')
+    out = np.zeros((n, out_stride), np.uint8)
+    lens = np.zeros(n, np.int64)
+    lib.pack_from_dense(n, dense.ctypes.data, meta.ctypes.data,
+                        out.ctypes.data, out_stride, lens.ctypes.data,
+                        _threads(0))
+    return out, lens

@@ -169,6 +169,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 def test_importing_the_port_loads_no_jax():
     code = ('import sys, openjph_tpu_torch, openjph_tpu_torch.gpu.pipeline\n'
+            'import openjph_tpu_torch.gpu.encode_pipeline\n'
+            'import openjph_tpu_torch.gpu.block_encode_cuda\n'
             'bad = [m for m in sys.modules if m.split(".")[0] in '
             '("jax", "jaxlib", "openjph_tpu")]\n'
             'assert not bad, bad\n')
