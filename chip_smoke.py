@@ -1,6 +1,8 @@
 """Smoke run of openjph_tpu_torch on one NVIDIA GPU: builds the CUDA
 kernels from this checkout, holds each against its plain PyTorch version
-on every lane of 2048x1080 frames, drives the fused frame decode end to
+on every lane of 2048x1080 frames (the decode kernel also on frames of
+128x32 and 32x128 codeblocks and on lanes with damaged bytes), drives
+the fused frame decode end to
 end (gray 5/3 in both runner modes, RGB 9/7 ICT, an 8-frame burst) and
 the fused frame encode end to end (gray 5/3 against the repository's
 codestream, RGB 9/7 ICT against the port's CPU encode, an 8-frame
@@ -8,6 +10,8 @@ burst), times each stage (device stages with CUDA events, host stages
 with the host clock), and prints one JSON line per result.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --against OTHER.cu   # time another build of
+                                               # the decode kernel
 
 Exits non-zero, printing no result, when no CUDA device is present or
 any phase fails.  The last line of standard output is
@@ -29,13 +33,15 @@ GRAY = os.path.join(DATA, 'gray_2048x1080_rev.j2c')
 GRAY_NPY = os.path.join(DATA, 'gray_2048x1080.npy')
 RGB = os.path.join(DATA, 'rgb_2048x1080_97.j2c')
 BURST = 8
+NOISE = (1080, 2048)  # the seeded noise frame of the block-shape phase
 
 # H100 SXM published peaks (NVIDIA H100 data sheet)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 # integer operations per decoded sample, counted off the kernel source
-# (VLC/UVLC pair decode and MEL shared over a quad's four samples, plus
-# each sample's MagSgn refill, extract, value assembly and store)
+# (phase 1's VLC/UVLC pair decode and MEL shared over a quad's eight
+# samples, phase 2's kappa, U_q and scan shared over four, and each
+# sample's bit count, window, value assembly and store)
 OPS_PER_SAMPLE = 36
 # integer operations per encoded sample, counted off ht_cleanup_encode.cu:
 # per pair of quads (8 samples) ~96 for the samples' exponents and
@@ -90,7 +96,8 @@ def build_all():
             errors.append(e)
 
     threads = [threading.Thread(target=run, args=(f,))
-               for f in (K.load, E.load, native.have_native)]
+               for f in (K.load, E.load, native.have_native,
+                         lambda: phase_builds(0), lambda: phase_builds(1))]
     t0 = time.perf_counter()
     for t in threads:
         t.start()
@@ -99,6 +106,20 @@ def build_all():
     if errors:
         raise errors[0]
     return time.perf_counter() - t0, dict(_build.BUILD_SECONDS)
+
+
+_PHASE_LIBS = {}
+
+
+def phase_builds(stop: int):
+    """The decode kernel built to stop each codeblock after phase
+    ``stop`` (OJK_STOP_AFTER), for the phase split."""
+    from openjph_tpu_torch.gpu import block_decode_cuda as K
+    if stop not in _PHASE_LIBS:
+        _PHASE_LIBS[stop] = K.build(
+            K.SRC, f'ht_cleanup_decode_stop{stop}',
+            defines=(f'OJK_STOP_AFTER={stop}',))
+    return _PHASE_LIBS[stop]
 
 
 def group_views(buf, plan, raw: bool, words=None):
@@ -125,12 +146,9 @@ def group_views(buf, plan, raw: bool, words=None):
     return out
 
 
-def kernel_vs_plain(data: bytes, dev, name: str, card_id: str):
-    """Both reader modes of the kernel against their plain versions on
-    every lane of one frame, on the card."""
-    import torch
-    from openjph_tpu_torch.gpu import block_decode as plain
-    from openjph_tpu_torch.gpu import block_decode_cuda as K
+def frame_views(data: bytes, dev):
+    """(plan, raw-mode group views, dense-mode group views) of one
+    frame's kernel arguments on the card."""
     from openjph_tpu_torch.gpu.pipeline import (GpuDecoder, _build_plan,
                                                 _pack_burst, _pack_device,
                                                 upload)
@@ -138,38 +156,92 @@ def kernel_vs_plain(data: bytes, dev, name: str, card_id: str):
     plan = _build_plan(dec)
     (rbuf,) = upload(_pack_device([(dec, plan)]), dev)
     words, dmeta = upload(_pack_burst([dec._group_arrays(plan)]), dev)
+    return (plan, group_views(rbuf, plan, True),
+            group_views(dmeta, plan, False, words))
+
+
+def corrupt_views(views, seed: int, lanes: int = 64, flips: int = 4):
+    """The raw-mode views with ``flips`` seeded byte flips in the MagSgn
+    and MEL / VLC bytes of about ``lanes`` live lanes, and dense-mode
+    views of the same damaged bytes (the plain unstuffer's word rows)."""
+    import numpy as np
+    import torch
+    from openjph_tpu_torch.gpu.block_decode import to_i32_bits
+    from openjph_tpu_torch.gpu.unstuff import raw_to_dense
+    rng = np.random.RandomState(seed)
+    blob = views[0][1][0].clone()
+    live = [(g, i) for g, _, c in views
+            for i in np.nonzero((c[7] > 0).cpu().numpy())[0]]
+    picks = rng.choice(len(live), min(lanes, len(live)), replace=False)
+    for k in picks:
+        g, i = live[k]
+        c = next(c for h, _, c in views if h is g)
+        off, n = int(c[0][i]), int(c[1][i] + c[2][i])
+        for _ in range(flips):
+            at = off + int(rng.randint(0, n))
+            blob[at] ^= int(rng.randint(1, 256))
+    raw, dense = [], []
+    for g, args, c in views:
+        raw.append((g, (blob,) + tuple(args[1:]), c))
+        mel, vlc, ms = raw_to_dense(blob, c[0], c[1], c[2], g.words)
+        dense.append((g, tuple(to_i32_bits(t).contiguous()
+                               for t in (mel, vlc, ms))
+                      + (c[6], g.w, g.h, c[7]), c))
+    return raw, dense, len(picks)
+
+
+def hold(kname, kern, ref, views, valid: bool):
+    """Kernel against plain version on every lane of ``views``: equal
+    samples (rows at or past 2*qhl are zero in both) and equal error
+    flags.  Returns (plain ms, kernel outputs per group)."""
+    import torch
+    plain_ms = 0.0
+    outs = []
+    for g, args, c in views:
+        d, e = kern(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dp, ep = ref(*args)
+        torch.cuda.synchronize()
+        plain_ms += (time.perf_counter() - t0) * 1e3
+        if not torch.equal(e, ep):
+            raise AssertionError(f'{kname}: error flags differ from the '
+                                 f'plain version in group {g.w}x{g.h}')
+        if not torch.equal(d, dp):
+            raise AssertionError(f'{kname}: samples differ from the plain '
+                                 f'version in group {g.w}x{g.h}')
+        if valid and bool(e[c[7] > 0].any()):
+            raise AssertionError(f'{kname}: flagged a lane of a valid '
+                                 f'stream')
+        outs.append((d, e))
+    return plain_ms, outs
+
+
+def kernel_modes():
+    """(name, wrapper, plain version, raw?) of both reader modes."""
+    from openjph_tpu_torch.gpu import block_decode as plain
+    from openjph_tpu_torch.gpu import block_decode_cuda as K
+    return (('ht_cleanup_decode_raw', K.decode_cleanup_raw,
+             K.decode_cleanup_raw_plain, True),
+            ('ht_cleanup_decode_dense', K.decode_cleanup,
+             plain.decode_cleanup_core, False))
+
+
+def kernel_vs_plain(data: bytes, dev, name: str, card_id: str):
+    """Both reader modes of the kernel against their plain versions on
+    every lane of one frame, on the card, timed, with the sweep over
+    codeblocks per CUDA block; returns the kernels-line rows."""
+    import torch
+    from openjph_tpu_torch.gpu import block_decode_cuda as K
+    _, rviews, dviews = frame_views(data, dev)
     rows = {}
-    for raw in (True, False):
-        kname = 'ht_cleanup_decode_raw' if raw else 'ht_cleanup_decode_dense'
-        kern = K.decode_cleanup_raw if raw else K.decode_cleanup
-        ref = K.decode_cleanup_raw_plain if raw else plain.decode_cleanup_core
-        views = group_views(rbuf if raw else dmeta, plan, raw, words)
-        lanes = live = 0
-        coded = out_bytes = samples = 0
-        err_max = 0
-        ms = plain_ms = 0.0
+    for kname, kern, ref, raw in kernel_modes():
+        views = rviews if raw else dviews
+        plain_ms, _ = hold(kname, kern, ref, views, True)
+        ms = sum(cuda_ms(lambda: kern(*a), 20) for _, a, _ in views)
+        lanes = live = coded = out_bytes = samples = 0
         for g, args, c in views:
-            d, e = kern(*args)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            dp, ep = ref(*args)
-            torch.cuda.synchronize()
-            plain_ms += (time.perf_counter() - t0) * 1e3
             qhl = c[7].to(torch.int64)
-            rowmask = (torch.arange(g.h, device=dev)[None, :]
-                       < 2 * qhl[:, None])[:, :, None]
-            diff = (d.to(torch.int64) - dp.to(torch.int64)).abs() * rowmask
-            err_max = max(err_max, int(diff.max()))
-            if not torch.equal(e, ep):
-                raise AssertionError(f'{kname}: error flags differ from '
-                                     f'the plain version in group {g.w}')
-            if err_max != 0:
-                raise AssertionError(f'{kname}: samples differ from the '
-                                     f'plain version in group {g.w}')
-            if bool(e[qhl > 0].any()):
-                raise AssertionError(f'{kname}: flagged a lane of a valid '
-                                     f'stream')
-            ms += cuda_ms(lambda: kern(*args), 20)
             n = g.n_pad
             lanes += n
             live += int((qhl > 0).sum())
@@ -187,27 +259,136 @@ def kernel_vs_plain(data: bytes, dev, name: str, card_id: str):
             'name': kname, 'route': 'cuda',
             'source': 'openjph_tpu_torch/gpu/csrc/ht_cleanup_decode.cu',
             'replaces': 'openjph_tpu/tpu/block_decode_pallas.py:801',
-            'launches': 0, 'max_abs_err': err_max, 'ms': ms,
+            'launches': 0, 'max_abs_err': 0, 'ms': ms,
             'plain_ms': plain_ms, 'bound_ms': max(bytes_ms, ops_ms),
             'bound_by': 'bytes' if bytes_ms >= ops_ms else 'operations',
-            'library_ms': None, 'bit_exact': err_max == 0,
+            'library_ms': None, 'bit_exact': True,
         }
         # codeblocks per CUDA block: the launch setting against others
         sweep = {}
-        default = K.THREADS
+        default = K.PER_BLOCK
         try:
-            for tpb in (1, 2, 4, 8, 32):
-                K.THREADS = tpb
-                sweep[tpb] = sum(cuda_ms(lambda: kern(*a), 20)
-                                 for _, a, _ in views)
+            for k in (1, 2, 4, 8):
+                K.PER_BLOCK = k
+                sweep[k] = sum(cuda_ms(lambda: kern(*a), 20)
+                               for _, a, _ in views)
         finally:
-            K.THREADS = default
+            K.PER_BLOCK = default
+        # the phases: builds that stop after phase 0 and after phase 1
+        stops = [sum(cuda_ms(lambda: run(*a), 20) for _, a, _ in views)
+                 for run in (other_build(phase_builds(s), raw, default)
+                             for s in (0, 1))]
+        emit('phase_split', frame=name, kernel=kname,
+             phase0_ms=stops[0], phase1_ms=stops[1] - stops[0],
+             phase2_ms=ms - stops[1], all_ms=ms, card=card_id)
         emit('kernel_vs_plain', frame=name, kernel=kname, lanes=lanes,
              live_lanes=live, bit_exact=True, kernel_ms=ms,
              plain_ms=plain_ms, bytes_moved=nbytes, samples=samples,
-             bound_ms=rows[kname]['bound_ms'], threads_per_block=default,
-             kernel_ms_by_threads_per_block=sweep, card=card_id)
+             bound_ms=rows[kname]['bound_ms'],
+             longest_lane_pair_steps=pair_steps(views),
+             codeblocks_per_block=default,
+             kernel_ms_by_codeblocks_per_block=sweep, card=card_id)
     return rows
+
+
+def pair_steps(views) -> int:
+    """Pair steps of the frame's longest lane: its quad rows (qhl) times
+    the pairs of quads in a row."""
+    return max(int(c[7].max()) * ((((g.w + 1) // 2) + 1) // 2)
+               for g, _, c in views)
+
+
+def shapes_vs_plain(dev, card_id: str):
+    """Codeblocks wider and taller than 64: a seeded noise frame encoded
+    on the card with 128x32 and with 32x128 blocks, decoded by the
+    kernel in both modes and held against the plain version on every
+    lane."""
+    import numpy as np
+    from openjph_tpu_torch.gpu.encode_pipeline import encode_gpu
+    frame = np.random.RandomState(3).randint(0, 256, NOISE)
+    for bs in ((128, 32), (32, 128)):
+        data = encode_gpu(frame.astype(np.int32), device='cuda',
+                          reversible=True, block_size=bs)
+        plan, rviews, dviews = frame_views(data, dev)
+        for kname, kern, ref, raw in kernel_modes():
+            views = rviews if raw else dviews
+            plain_ms, _ = hold(kname, kern, ref, views, True)
+            ms = sum(cuda_ms(lambda: kern(*a), 20) for _, a, _ in views)
+            emit('shapes_vs_plain', block_size=list(bs), kernel=kname,
+                 bit_exact=True, lanes=sum(g.n_pad for g in plan.groups),
+                 groups=[(g.w, g.h, g.n_pad) for g in plan.groups],
+                 max_quads_per_row=max((g.w + 1) // 2 for g in plan.groups),
+                 kernel_ms=ms, plain_ms=plain_ms, card=card_id)
+
+
+def other_build(lib, raw: bool, per_block: int):
+    """A launcher of another build of the kernel's source (``lib``) that
+    takes the wrapper's arguments; its launches are not counted."""
+    from openjph_tpu_torch.gpu import block_decode_cuda as K
+    if raw:
+        return lambda *a: K.launch_raw(lib, per_block, *a[:-1])
+    return lambda *a: K.launch_dense(lib, per_block, *a)
+
+
+def corrupted_vs_plain(data: bytes, dev, card_id: str, lib=None):
+    """The gray frame's inputs with seeded byte flips in about 64 lanes,
+    kernel against plain version in both modes (samples and error
+    flags).  ``lib``: another build of the kernel's source (the one
+    ``--against`` names, two codeblocks per block) to hold instead."""
+    _, rviews, _ = frame_views(data, dev)
+    raw_v, dense_v, hit = corrupt_views(rviews, seed=11)
+    for kname, kern, ref, raw in kernel_modes():
+        if lib is not None:
+            kern = other_build(lib, raw, 2)
+        views = raw_v if raw else dense_v
+        _, outs = hold(kname, kern, ref, views, False)
+        emit('corrupted_vs_plain', kernel=kname, damaged_lanes=hit,
+             flagged_lanes=sum(int(e.sum()) for _, e in outs),
+             bit_exact=True, build='main' if lib is None else 'against',
+             card=card_id)
+
+
+def against(src: str, dev, card_id: str):
+    """``--against SRC``: another source of the decode kernel with the
+    same C interface (launched with two codeblocks per block) and this
+    checkout's, in turns on the gray frame in both modes (against, this,
+    this, against): equal outputs, their times, and the other build held
+    against the plain version on the corrupted-lane copy."""
+    import torch
+    from openjph_tpu_torch.gpu import block_decode_cuda as K
+    gray = open(GRAY, 'rb').read()
+    K.load()
+    lib = K.build(os.path.abspath(src), 'ht_cleanup_decode_against')
+    _, rviews, dviews = frame_views(gray, dev)
+    for kname, kern, _, raw in kernel_modes():
+        views = rviews if raw else dviews
+        other = other_build(lib, raw, 2)
+        for g, a, _ in views:
+            d0, e0 = other(*a)
+            d1, e1 = kern(*a)
+            torch.cuda.synchronize()
+            if not (torch.equal(d0, d1) and torch.equal(e0, e1)):
+                raise AssertionError(f'{kname}: {src} and this checkout '
+                                     f'differ in group {g.w}x{g.h}')
+        times = {'against': [], 'this': []}
+        for who in ('against', 'this', 'this', 'against'):
+            fn = other if who == 'against' else kern
+            times[who].append(sum(cuda_ms(lambda: fn(*a), 20)
+                                  for _, a, _ in views))
+        steps = pair_steps(views)
+        old = statistics.mean(times['against'])
+        new = statistics.mean(times['this'])
+        emit('against', kernel=kname, source=src, equal=True,
+             against_ms=times['against'], this_ms=times['this'],
+             speedup=old / new, longest_lane_pair_steps=steps,
+             against_ns_per_pair_step=old * 1e6 / steps,
+             this_ns_per_pair_step=new * 1e6 / steps,
+             this_codeblocks_per_block=K.PER_BLOCK, card=card_id)
+    try:
+        corrupted_vs_plain(gray, dev, card_id, lib)
+    except AssertionError as e:
+        emit('corrupted_vs_plain', build='against', bit_exact=False,
+             error=str(e), card=card_id)
 
 
 def decode_frames(datas, dev, raw: bool = True):
@@ -414,8 +595,14 @@ def from_sot(stream: bytes) -> bytes:
 
 
 def main() -> int:
+    import argparse
     import numpy as np
     import torch
+    ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    ap.add_argument('--against', metavar='SRC',
+                    help='only time the decode kernel built from SRC (same '
+                         'C interface) against this checkout\'s')
+    opts = ap.parse_args()
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; nothing was run',
               file=sys.stderr)
@@ -428,6 +615,9 @@ def main() -> int:
     card_id = card()
     print(card_id, flush=True)
     dev = torch.device('cuda', 0)
+    if opts.against:
+        against(opts.against, dev, card_id)
+        return 0
     build_s, per_lib = build_all()
     emit('setup', card=card_id, torch=torch.__version__,
          cuda=torch.version.cuda, python=sys.version.split()[0],
@@ -439,6 +629,9 @@ def main() -> int:
 
     # 1. the kernel against its plain version, every lane of the frame
     kernels = kernel_vs_plain(gray, dev, 'gray_2048x1080_rev', card_id)
+    # ... on codeblocks wider and taller than 64, and on damaged lanes
+    shapes_vs_plain(dev, card_id)
+    corrupted_vs_plain(gray, dev, card_id)
 
     # reference for the RGB frame: the port's own CPU decode (plain
     # versions of every stage); it launches no kernel

@@ -8,8 +8,9 @@ with its two entry points:
 
 A CPU tensor takes the plain PyTorch version (block_decode.py, plus
 unstuff.py for the raw readers).  A CUDA tensor launches the kernel or
-raises: there is no fallback.  The kernel is compiled with nvcc for
-sm_90a at first use into build/openjph_tpu_torch/ and bound with
+raises: there is no fallback.  The kernel decodes one codeblock per
+warp, ``PER_BLOCK`` codeblocks per CUDA block.  It is compiled with nvcc
+for sm_90a at first use into build/openjph_tpu_torch/ and bound with
 ctypes; it runs on the current CUDA stream and allocates nothing.
 ``LAUNCHES`` counts the kernel launches of each entry point.
 """
@@ -27,36 +28,47 @@ from .unstuff import raw_to_dense
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'csrc',
                    'ht_cleanup_decode.cu')
 LAUNCHES = {'ht_cleanup_decode_dense': 0, 'ht_cleanup_decode_raw': 0}
-# codeblocks (threads) per CUDA block.  Lanes of one warp diverge at
-# every branch of the bit parsing, so few lanes per block run faster:
-# on an H100 (700 W), 2 beat 1, 4, 8, 16 and 32 in both reader modes
-# on the 2048x1080 gray frame's 768 lanes (chip_smoke.py's sweep).
-THREADS = 2
+# codeblocks (warps) per CUDA block; they share one copy of the decode
+# tables in shared memory.  chip_smoke.py's sweep over 1, 2, 4 and 8 on
+# the 2048x1080 gray frame's 768 lanes put 4 first or within 2% of the
+# best in both reader modes on an H100 80GB HBM3 (700 W), and 8 last; PERF.md
+# has the times.
+PER_BLOCK = 4
+# HTJ2K's cap on a codeblock's MEL / VLC suffix (Scup), in bytes; a raw
+# lane with a longer suffix is flagged and zeroed
+MAX_SUFFIX = 4079
 
 _lib = None
 _TABLES = {}
+
+
+def build(src: str = SRC, name: str = 'ht_cleanup_decode', defines=()):
+    """Compile ``src``, a source with this kernel's C interface, with
+    nvcc for sm_90a (``defines``: extra -D macros) and load it with its
+    entry points bound."""
+    nvcc = nvcc_path()
+    flags = [f'-D{d}' for d in defines]
+    lib = load_library(
+        name, [src],
+        lambda out: [nvcc, '-gencode', 'arch=compute_90a,code=sm_90a',
+                     '-std=c++17', '-O3', *flags, '-shared', '-Xcompiler',
+                     '-fPIC', '-o', out, src])
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.ht_cleanup_decode_dense.restype = ci
+    lib.ht_cleanup_decode_dense.argtypes = (
+        [vp, vp, vp, ci, ci, ci, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp])
+    lib.ht_cleanup_decode_raw.restype = ci
+    lib.ht_cleanup_decode_raw.argtypes = (
+        [vp, ctypes.c_longlong, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci,
+         ci, ci, vp])
+    return lib
 
 
 def load():
     """Build (once) and load the kernel library."""
     global _lib
     if _lib is None:
-        nvcc = nvcc_path()
-        lib = load_library(
-            'ht_cleanup_decode', [SRC],
-            lambda out: [nvcc, '-gencode', 'arch=compute_90a,code=sm_90a',
-                         '-std=c++17', '-O3', '-shared', '-Xcompiler',
-                         '-fPIC', '-o', out, SRC])
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.ht_cleanup_decode_dense.restype = ci
-        lib.ht_cleanup_decode_dense.argtypes = (
-            [vp, vp, vp, ci, ci, ci, vp, vp, vp, vp, vp, ci, ci, ci, ci,
-             vp])
-        lib.ht_cleanup_decode_raw.restype = ci
-        lib.ht_cleanup_decode_raw.argtypes = (
-            [vp, ctypes.c_longlong, vp, vp, vp, vp, vp, vp, vp, vp, ci,
-             ci, ci, ci, vp])
-        _lib = lib
+        _lib = build()
     return _lib
 
 
@@ -108,33 +120,44 @@ def decode_cleanup(melw, vlcw, msw, p, width: int, height: int,
     if not (vlcw.shape[0] == msw.shape[0] == p.shape[0]
             == qh_lim.shape[0] == n):
         raise ValueError('lane counts differ')
-    lib = load()
-    dec = torch.empty((n, height, width), dtype=torch.int32, device=dev)
-    err = torch.empty((n,), dtype=torch.bool, device=dev)
+    out = launch_dense(load(), PER_BLOCK, melw, vlcw, msw, p, width,
+                       height, qh_lim)
+    LAUNCHES['ht_cleanup_decode_dense'] += 1
+    return out
+
+
+def launch_dense(lib, per_block: int, melw, vlcw, msw, p, width: int,
+                 height: int, qh_lim):
+    """One launch of ``lib``'s dense entry on checked CUDA tensors."""
+    dev = melw.device
+    dec = torch.empty((melw.shape[0], height, width), dtype=torch.int32,
+                      device=dev)
+    err = torch.empty((melw.shape[0],), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.ht_cleanup_decode_dense(
             melw.data_ptr(), vlcw.data_ptr(), msw.data_ptr(),
             melw.shape[1], vlcw.shape[1], msw.shape[1], p.data_ptr(),
             qh_lim.data_ptr(), _tables(dev).data_ptr(), dec.data_ptr(),
-            err.data_ptr(), n, width, height, THREADS, stream)
+            err.data_ptr(), melw.shape[0], width, height, per_block,
+            stream)
     if rc != 0:
         raise RuntimeError(f'ht_cleanup_decode_dense launch failed: '
                            f'CUDA error {rc}')
-    LAUNCHES['ht_cleanup_decode_dense'] += 1
     return dec, err
 
 
 def decode_cleanup_raw_plain(blob, lane_off, ms_n, sh_n, p, width: int,
                              height: int, qh_lim, words):
     """Plain version of the raw-reader mode: unstuff.raw_to_dense, then
-    the plain block decoder.  A lane whose byte range leaves the blob
-    decodes to zeros with its error flag set, as in the kernel."""
+    the plain block decoder.  A lane whose byte range leaves the blob,
+    or whose suffix is longer than MAX_SUFFIX, decodes to zeros with its
+    error flag set, as in the kernel."""
     mel, vlc, ms = raw_to_dense(blob, lane_off, ms_n, sh_n, words)
     dec, err = plain.decode_cleanup_core(mel, vlc, ms, p, width, height,
                                          qh_lim)
     off = lane_off.to(torch.int64)
-    bad = ((off < 0) | (ms_n < 0) | (sh_n < 1)
+    bad = ((off < 0) | (ms_n < 0) | (sh_n < 1) | (sh_n > MAX_SUFFIX)
            | (off + ms_n + sh_n > blob.shape[0]))
     dec = torch.where(bad[:, None, None], torch.zeros_like(dec), dec)
     return dec, err | bad
@@ -165,7 +188,17 @@ def decode_cleanup_raw(blob, lane_off, ms_n, sh_n, p, width: int,
     if not (ms_n.shape[0] == sh_n.shape[0] == p.shape[0]
             == qh_lim.shape[0] == n):
         raise ValueError('lane counts differ')
-    lib = load()
+    out = launch_raw(load(), PER_BLOCK, blob, lane_off, ms_n, sh_n, p,
+                     width, height, qh_lim)
+    LAUNCHES['ht_cleanup_decode_raw'] += 1
+    return out
+
+
+def launch_raw(lib, per_block: int, blob, lane_off, ms_n, sh_n, p,
+               width: int, height: int, qh_lim):
+    """One launch of ``lib``'s raw entry on checked CUDA tensors."""
+    dev = blob.device
+    n = lane_off.shape[0]
     dec = torch.empty((n, height, width), dtype=torch.int32, device=dev)
     err = torch.empty((n,), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
@@ -174,11 +207,10 @@ def decode_cleanup_raw(blob, lane_off, ms_n, sh_n, p, width: int,
             blob.data_ptr(), blob.shape[0], lane_off.data_ptr(),
             ms_n.data_ptr(), sh_n.data_ptr(), p.data_ptr(),
             qh_lim.data_ptr(), _tables(dev).data_ptr(), dec.data_ptr(),
-            err.data_ptr(), n, width, height, THREADS, stream)
+            err.data_ptr(), n, width, height, per_block, stream)
     if rc != 0:
         raise RuntimeError(f'ht_cleanup_decode_raw launch failed: '
                            f'CUDA error {rc}')
-    LAUNCHES['ht_cleanup_decode_raw'] += 1
     return dec, err
 
 

@@ -6,14 +6,14 @@ with the frames left in device memory until the caller takes them.
 The planner and packers are the JAX package's (tpu/pipeline.py) with
 two changes: lane groups are padded to multiples of 8 (the 128-lane
 padding was a TPU register constraint), and the raw-bytes packer has
-no stuffing-density ceiling, because the kernel's readers take each
-lane's bytes directly.  Codeblocks are the batch axis: all blocks of
+no stuffing-density ceiling, because the kernel unstuffs each lane's
+bytes itself.  Codeblocks are the batch axis: all blocks of
 one width form a lane group, heights padded to the group maximum, and
 a burst of same-geometry frames is batched along the lanes (frame f of
 group g occupies lanes [f*n_pad, (f+1)*n_pad)).
 
 Two runner modes: ``raw=True`` ships one buffer (the stuffed segment
-bytes plus per-lane meta) and the kernel unstuffs in its readers;
+bytes plus per-lane meta) and the kernel unstuffs them;
 ``raw=False`` ships host-unstuffed dense words plus meta.
 """
 from __future__ import annotations

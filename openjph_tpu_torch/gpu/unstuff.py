@@ -20,10 +20,11 @@ states them in tpu/unstuff.py and bitprep.py, applied byte by byte:
   dropped bit ORs into the next byte's bit 0, and on the last byte it
   stays.  Past the end it reads 0.
 
-The CUDA kernel's raw readers apply the same per-byte rules inside the
-decode loop; this module applies them to whole lanes at once with
-tensor ops (per-byte payloads, an exclusive prefix sum of payload
-lengths, one scatter of the kept bits).
+A byte's payload depends only on it and the two bytes before it.  This
+module applies the rules to whole lanes at once with tensor ops
+(per-byte payloads, an exclusive prefix sum of payload lengths, one
+scatter of the kept bits); the CUDA kernel does the same 128 bytes at a
+time across a warp.
 """
 from __future__ import annotations
 

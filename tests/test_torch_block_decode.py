@@ -9,8 +9,10 @@ compared with tpu/block_decode.decode_cleanup on the dense words that
 TpuDecoder._group_arrays builds, bit-exact on rows < 2*qhl (rows past
 a lane's quad-row limit are cropped by the caller), with equal error
 flags; one small case goes against the Pallas raw-mode kernel in
-interpret mode.  The CUDA kernel itself is held against the plain
-versions by the test marked ``cuda``, which runs only where a card is.
+interpret mode.  The plain decoder's first step (MEL / VLC / UVLC, the
+CUDA kernel's phase 1) is also held against the JAX package's _step1 on
+its own.  The CUDA kernel itself is held against the plain versions by
+the test marked ``cuda``, which runs only where a card is.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -19,10 +21,12 @@ import torch
 
 from openjph_tpu import encode
 from openjph_tpu.tpu import pipeline as jp
+from openjph_tpu.tpu.block_decode import _step1 as jax_step1
 from openjph_tpu.tpu.block_decode import decode_cleanup as jax_decode
 from openjph_tpu.tpu.block_decode_pallas import decode_cleanup_pallas_raw
 from openjph_tpu.tpu.unstuff import _lane_words_fwd, _lane_words_rev
 
+from openjph_tpu_torch.gpu import block_decode as plain
 from openjph_tpu_torch.gpu import block_decode_cuda as K
 from openjph_tpu_torch.gpu import pipeline as tp
 
@@ -34,13 +38,18 @@ def _stream(seed, shape, bs, noise, nd=2):
     img[::3] = np.clip(img[::3] + rng.randint(-noise, noise,
                                               img[::3].shape), 0, 255)
     return encode([img], bit_depth=8, reversible=True,
-                  block_size=(bs, bs), num_decomps=nd)
+                  block_size=bs if isinstance(bs, tuple) else (bs, bs),
+                  num_decomps=nd)
 
 
 # one lane-group shape each where possible (the JAX reference compiles
-# per shape); bs64's odd frame gives odd-width and odd-height blocks
+# per shape); bs64's odd frame gives odd-width and odd-height blocks;
+# w128 (128x32 blocks) has rows of 40 quads, more than a warp's 32 lanes,
+# and h128 (32x128 blocks) 24 quad rows of 16 quads
 CASES = {'bs32': (5, (128, 128), 32, 90), 'bs16': (7, (64, 64), 16, 120),
-         'bs64': (9, (67, 75), 64, 40, 1)}
+         'bs64': (9, (67, 75), 64, 40, 1),
+         'w128': (11, (96, 160), (128, 32), 60),
+         'h128': (12, (96, 160), (32, 128), 60)}
 
 
 def _t(a):
@@ -103,6 +112,24 @@ def test_plain_dense_and_raw_match_jax(name):
         _check(g, qhl, d, e, ref, rerr)
 
 
+@pytest.mark.parametrize('name', sorted(CASES))
+def test_plain_step1_matches_jax(name):
+    """The plain decoder's MEL / VLC / UVLC step alone: each quad's inf
+    and u equal the JAX package's _step1 on every row below the lane's
+    quad-row limit."""
+    for g, gd, *_ in _groups(_stream(*CASES[name])):
+        qw, qh = (g.w + 1) // 2, (g.h + 1) // 2
+        ref_inf, ref_u = (np.asarray(a, np.int64)[:, :, :qw] for a in
+                          jax_step1(jnp.asarray(gd['mel']),
+                                    jnp.asarray(gd['vlc']), qw, qh))
+        inf, u = plain._step1(_t(gd['mel']), _t(gd['vlc']), qw, qh)
+        rows = np.arange(qh)[None, :, None] < gd['qhl'][:, None, None]
+        assert np.array_equal(np.where(rows, inf.numpy(), 0),
+                              np.where(rows, ref_inf, 0)), g.w
+        assert np.array_equal(np.where(rows, u.numpy(), 0),
+                              np.where(rows, ref_u, 0)), g.w
+
+
 def test_error_flag_matches_jax():
     """p raised by 3 on every lane (missing MSBs understated): U_q
     exceeds missing_msbs + 2 on the busy lanes, and both readers flag
@@ -160,6 +187,18 @@ def test_raw_lane_outside_blob_is_flagged():
     assert not d[1:].any()
 
 
+def test_raw_lane_past_the_suffix_cap_is_flagged():
+    """A MEL / VLC suffix longer than HTJ2K's cap (4,079 bytes) does not
+    fit the kernel's shared buffers: that lane is flagged and zeroed."""
+    blob = torch.full((4200,), 0x0F, dtype=torch.uint8)
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32)  # noqa: E731
+    d, e = K.decode_cleanup_raw(blob, i32([0, 0]), i32([0, 0]),
+                                i32([1, K.MAX_SUFFIX + 1]), i32([30, 30]),
+                                4, 4, i32([2, 2]), (8, 8, 8))
+    assert e.tolist() == [False, True]
+    assert not d[1].any()
+
+
 def test_wrapper_never_falls_back_off_the_cpu():
     z = torch.zeros((8, 8), dtype=torch.int32, device='meta')
     v = torch.zeros((8,), dtype=torch.int32, device='meta')
@@ -172,12 +211,13 @@ def test_wrapper_never_falls_back_off_the_cpu():
 
 
 @pytest.mark.cuda
-def test_cuda_kernel_matches_plain():
+@pytest.mark.parametrize('name', sorted(CASES))
+def test_cuda_kernel_matches_plain(name):
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device')
     dev = torch.device('cuda')
     K.reset_launches()
-    for g, gd, p, ref, rerr, blob, raw in _groups(_stream(*CASES['bs32'])):
+    for g, gd, p, ref, rerr, blob, raw in _groups(_stream(*CASES[name])):
         dense = [_t(gd[k]) for k in ('mel', 'vlc', 'ms')] + [_t(p),
                                                             _t(gd['qhl'])]
         want = K.decode_cleanup(*dense[:4], g.w, g.h, dense[4])
