@@ -1,17 +1,20 @@
 """Smoke run of openjph_tpu_torch on one NVIDIA GPU: builds the CUDA
 kernels from this checkout, holds each against its plain PyTorch version
-on every lane of 2048x1080 frames (the decode kernel also on frames of
-128x32 and 32x128 codeblocks and on lanes with damaged bytes), drives
-the fused frame decode end to
-end (gray 5/3 in both runner modes, RGB 9/7 ICT, an 8-frame burst) and
-the fused frame encode end to end (gray 5/3 against the repository's
-codestream, RGB 9/7 ICT against the port's CPU encode, an 8-frame
-burst), times each stage (device stages with CUDA events, host stages
-with the host clock), and prints one JSON line per result.
+on every lane of 2048x1080 frames (both kernels also on frames of
+128x32 and 32x128 codeblocks, the decode kernel on lanes with damaged
+bytes, the encode kernel on a 12-bit 2047x1079 frame and on 2037 of its
+columns), drives the fused frame decode end to end (gray 5/3 in both
+runner modes, RGB 9/7 ICT, an 8-frame burst) and the fused frame encode
+end to end (gray 5/3 against the repository's codestream, RGB 9/7 ICT
+and the 12-bit frame against the port's CPU encode, an 8-frame burst),
+times each stage (device stages with CUDA events, host stages with the
+host clock), and prints one JSON line per result.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --against OTHER.cu   # time another build of
-                                               # the decode kernel
+    python3 chip_smoke.py --against OTHER.cu          # another build of
+                                                      # the decode kernel
+    python3 chip_smoke.py --against-encode OTHER.cu   # ... of the encode
+                                                      # kernel
 
 Exits non-zero, printing no result, when no CUDA device is present or
 any phase fails.  The last line of standard output is
@@ -34,6 +37,9 @@ GRAY_NPY = os.path.join(DATA, 'gray_2048x1080.npy')
 RGB = os.path.join(DATA, 'rgb_2048x1080_97.j2c')
 BURST = 8
 NOISE = (1080, 2048)  # the seeded noise frame of the block-shape phase
+# the seeded 12-bit frame of the encode phases: its odd sizes give edge
+# codeblocks of odd height and 63 wide
+NOISE12 = (1079, 2047)
 
 # H100 SXM published peaks (NVIDIA H100 data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -43,12 +49,15 @@ FP32_OPS_PER_S = 67e12
 # samples, phase 2's kappa, U_q and scan shared over four, and each
 # sample's bit count, window, value assembly and store)
 OPS_PER_SAMPLE = 36
-# integer operations per encoded sample, counted off ht_cleanup_encode.cu:
-# per pair of quads (8 samples) ~96 for the samples' exponents and
-# MagSgn values, ~100 per quad for kappa, eps, the context rows, the VLC
-# lookup and append, the MEL event and the MagSgn appends, and ~70 for the
-# u codes: ~370, or 46 per sample
-ENC_OPS_PER_SAMPLE = 46
+# integer operations per encoded sample, counted off ht_cleanup_encode.cu,
+# per quad (4 samples) and lane: ~64 for the samples' exponents, MagSgn
+# values and rho, ~35 for the context (shuffles, the row above's entries,
+# c_q, max_e, kappa), ~45 for u_q, eps, the tuple and the MagSgn lengths,
+# ~25 for its half of the pair's VLC bits and MEL events, ~17 for the
+# scan, ~45 for the ten atomic ORs, ~10 for the events' reduction and the
+# context store, ~6 for the ring's stores: ~250, or 62 per sample (the MEL
+# coder, a table step per four events, adds under one per sample)
+ENC_OPS_PER_SAMPLE = 62
 
 
 def card() -> str:
@@ -65,12 +74,22 @@ def emit(tag: str, **fields):
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over reps launches, after a warm-up."""
+    """Mean device time of fn() over reps launches, after a warm-up.  The
+    card first sleeps until the host has queued every launch, so they run
+    back to back and the events time the device, not the host's
+    enqueueing (a wrapper's Python costs tens of microseconds a call)."""
     import torch
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    # clock64 cycles at up to 1.98 GHz: the reps' host time, twice over,
+    # plus a millisecond
+    torch.cuda._sleep(int((2 * reps * host_s + 1e-3) * 1.98e9))
     a.record()
     for _ in range(reps):
         fn()
@@ -300,15 +319,17 @@ def pair_steps(views) -> int:
 
 def shapes_vs_plain(dev, card_id: str):
     """Codeblocks wider and taller than 64: a seeded noise frame encoded
-    on the card with 128x32 and with 32x128 blocks, decoded by the
-    kernel in both modes and held against the plain version on every
-    lane."""
+    on the card with 128x32 and with 32x128 blocks, the encode kernel and
+    then the decode kernel in both modes held against their plain
+    versions on every lane."""
     import numpy as np
     from openjph_tpu_torch.gpu.encode_pipeline import encode_gpu
-    frame = np.random.RandomState(3).randint(0, 256, NOISE)
+    frame = np.random.RandomState(3).randint(0, 256, NOISE).astype(np.int32)
     for bs in ((128, 32), (32, 128)):
-        data = encode_gpu(frame.astype(np.int32), device='cuda',
-                          reversible=True, block_size=bs)
+        k3_vs_plain([frame], dev, f'noise_{bs[0]}x{bs[1]}', card_id,
+                    reversible=True, block_size=bs)
+        data = encode_gpu(frame, device='cuda', reversible=True,
+                          block_size=bs)
         plan, rviews, dviews = frame_views(data, dev)
         for kname, kern, ref, raw in kernel_modes():
             views = rviews if raw else dviews
@@ -468,19 +489,37 @@ def enc_batches(planes, dev, **kwargs):
     return plan, runner, runner.graph(*tpl)
 
 
-def k3_vs_plain(planes, dev, name: str, card_id: str, **kwargs):
+def k3_groups(planes, dev, **kwargs):
+    """(plan, [(group, encode_cleanup's arguments)]) of one frame's fused
+    encode on the card."""
+    plan, runner, batches = enc_batches(planes, dev, **kwargs)
+    return plan, [(g, (buf, p, g.w, g.h, g.caps, qhl))
+                  for g, (buf, _), p, qhl in zip(plan.groups, batches,
+                                                  runner.lane_p,
+                                                  runner.lane_qhl)]
+
+
+def k3_pair_steps(groups) -> int:
+    """Pair steps of the longest lane: its quad rows times the pairs of
+    quads in a row."""
+    return max(int(a[5].max()) * ((((g.w + 1) // 2) + 1) // 2)
+               for g, a in groups)
+
+
+def k3_vs_plain(planes, dev, name: str, card_id: str, sweep: bool = False,
+                **kwargs):
     """The encode kernel against its plain version on every lane of one
-    frame's group batches, on the card; returns its kernels-line row."""
+    frame's group batches, on the card: bit counts, overflow flags and
+    every word.  ``sweep`` times codeblocks per CUDA block 1 / 2 / 4 / 8.
+    Returns its kernels-line row."""
     import torch
     from openjph_tpu_torch.gpu import block_encode as plain
     from openjph_tpu_torch.gpu import block_encode_cuda as E
-    plan, runner, batches = enc_batches(planes, dev, **kwargs)
-    lanes = live = samples = nbytes = 0
-    ms = plain_ms = 0.0
-    groups = []
-    for g, (buf, _), p, qhl in zip(plan.groups, batches, runner.lane_p,
-                                   runner.lane_qhl):
-        args = (buf, p, g.w, g.h, g.caps, qhl)
+    plan, groups = k3_groups(planes, dev, **kwargs)
+    lanes = live = samples = nbytes = zero_tail = 0
+    ms = plain_ms = zeros_ms = 0.0
+    odd_qw_lanes = 0
+    for g, args in groups:
         cat, bits, ovf = E.encode_cleanup(*args)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -490,7 +529,7 @@ def k3_vs_plain(planes, dev, name: str, card_id: str, **kwargs):
         if not torch.equal(bits, bits_p) or not torch.equal(ovf, ovf_p):
             raise AssertionError(f'ht_cleanup_encode: bit counts or '
                                  f'overflow flags differ from the plain '
-                                 f'version in group {g.w} of {name}')
+                                 f'version in group {g.w}x{g.h} of {name}')
         if bool(ovf.any()):
             raise AssertionError(f'ht_cleanup_encode: a lane of {name} '
                                  f'overflowed')
@@ -498,36 +537,52 @@ def k3_vs_plain(planes, dev, name: str, card_id: str, **kwargs):
         # each stream's used prefix zero
         if not torch.equal(cat, cat_p):
             raise AssertionError(f'ht_cleanup_encode: words differ from '
-                                 f'the plain version in group {g.w} of '
-                                 f'{name}')
+                                 f'the plain version in group {g.w}x{g.h} '
+                                 f'of {name}')
         ms += cuda_ms(lambda: E.encode_cleanup(*args), 20)
+        buf, qhl = args[0], args[5]
         n = buf.shape[0]
+        # what zeroing cat would cost a caller whose kernel left the
+        # words past each used prefix to it (this kernel stores them)
+        zeros_ms += cuda_ms(lambda: torch.zeros(
+            (n, sum(g.caps)), dtype=torch.int32, device=dev), 20)
         lanes += n
         live += int((qhl > 0).sum())
-        samples += int((2 * qhl.to(torch.int64)).clamp(max=g.h).sum()) * g.w
+        if ((g.w + 1) // 2) % 2:
+            odd_qw_lanes += int((qhl > 0).sum())
+        rows = (2 * qhl.to(torch.int64)).clamp(max=g.h)
+        samples += int(rows.sum()) * g.w
         used = int(((bits.to(torch.int64) + 31) // 32).sum())
-        # samples and per-lane p/qhl in; used words, bit counts and
-        # flags out
+        # the bound as defined since the kernel's first port: samples and
+        # per-lane p/qhl in; used words, bit counts and flags out.  The
+        # zeros the kernel stores past the used prefixes, which no
+        # consumer reads, are reported apart
         nbytes += buf.numel() * 4 + n * 8 + used * 4 + n * 16
-        groups.append(args)
+        zero_tail += (n * sum(g.caps) - used) * 4
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = samples * ENC_OPS_PER_SAMPLE / FP32_OPS_PER_S * 1e3
-    sweep = {}
-    default = E.THREADS
-    try:
-        for tpb in (1, 2, 4, 8, 32):
-            E.THREADS = tpb
-            sweep[tpb] = sum(cuda_ms(lambda: E.encode_cleanup(*a), 20)
-                             for a in groups)
-    finally:
-        E.THREADS = default
+    fields = {}
+    if sweep:
+        # codeblocks per CUDA block: the launch setting against others, on
+        # the frame and on its lanes repeated as in an 8-frame burst
+        burst = [(buf.repeat(BURST, 1, 1), p.repeat(BURST), w, h, caps,
+                  qhl.repeat(BURST))
+                 for _, (buf, p, w, h, caps, qhl) in groups]
+        for key, sets in (('kernel_ms_by_codeblocks_per_block', groups),
+                          ('burst_ms_by_codeblocks_per_block',
+                           [(None, b) for b in burst])):
+            fields[key] = {k: sum(cuda_ms(lambda: E.launch(E.load(), k, *a),
+                                          20) for _, a in sets)
+                           for k in (1, 2, 4, 8)}
     emit('k3_vs_plain', frame=name, lanes=lanes, live_lanes=live,
+         odd_qw_live_lanes=odd_qw_lanes,
          groups=[(g.w, g.h, len(g.lanes), g.n_pad, list(g.caps))
                  for g in plan.groups],
          bit_exact=True, kernel_ms=ms, plain_ms=plain_ms, bytes_moved=nbytes,
+         zero_tail_bytes=zero_tail, caller_zeros_ms=zeros_ms,
          samples=samples, bound_ms=max(bytes_ms, ops_ms),
-         threads_per_block=default, kernel_ms_by_threads_per_block=sweep,
-         card=card_id)
+         longest_lane_pair_steps=k3_pair_steps(groups),
+         codeblocks_per_block=E.PER_BLOCK, card=card_id, **fields)
     return {
         'name': 'ht_cleanup_encode', 'route': 'cuda',
         'source': 'openjph_tpu_torch/gpu/csrc/ht_cleanup_encode.cu',
@@ -537,6 +592,45 @@ def k3_vs_plain(planes, dev, name: str, card_id: str, **kwargs):
         'bound_by': 'bytes' if bytes_ms >= ops_ms else 'operations',
         'library_ms': None, 'bit_exact': True,
     }
+
+
+def against_encode(src: str, dev, card_id: str):
+    """``--against-encode SRC``: another source of the encode kernel with
+    the same C interface (two codeblocks per block, handed a zeroed
+    output) and this checkout's, on the gray frame: equal outputs on
+    every lane, then their times in turns (against, this, this,
+    against)."""
+    import numpy as np
+    import torch
+    from openjph_tpu_torch.gpu import block_encode_cuda as E
+    E.load()
+    lib = E.build(os.path.abspath(src), 'ht_cleanup_encode_against')
+    _, groups = k3_groups([np.load(GRAY_NPY)], dev, reversible=True)
+
+    def other(*a):
+        return E.launch(lib, 2, *a, zeroed=True)
+
+    for g, a in groups:
+        got, want = E.encode_cleanup(*a), other(*a)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(f'ht_cleanup_encode: {src} and this '
+                                 f'checkout differ in group {g.w}x{g.h}')
+    times = {'against': [], 'this': []}
+    for who in ('against', 'this', 'this', 'against'):
+        fn = other if who == 'against' else E.encode_cleanup
+        times[who].append(sum(cuda_ms(lambda: fn(*a), 20)
+                              for _, a in groups))
+    steps = k3_pair_steps(groups)
+    old = statistics.mean(times['against'])
+    new = statistics.mean(times['this'])
+    emit('against_encode', kernel='ht_cleanup_encode', source=src,
+         equal=True, lanes=sum(a[0].shape[0] for _, a in groups),
+         against_ms=times['against'], this_ms=times['this'],
+         speedup=old / new, longest_lane_pair_steps=steps,
+         against_ns_per_pair_step=old * 1e6 / steps,
+         this_ns_per_pair_step=new * 1e6 / steps,
+         this_codeblocks_per_block=E.PER_BLOCK, card=card_id)
 
 
 def encode_frames(frames, dev):
@@ -602,6 +696,9 @@ def main() -> int:
     ap.add_argument('--against', metavar='SRC',
                     help='only time the decode kernel built from SRC (same '
                          'C interface) against this checkout\'s')
+    ap.add_argument('--against-encode', metavar='SRC',
+                    help='only time the encode kernel built from SRC (same '
+                         'C interface) against this checkout\'s')
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; nothing was run',
@@ -617,6 +714,9 @@ def main() -> int:
     dev = torch.device('cuda', 0)
     if opts.against:
         against(opts.against, dev, card_id)
+        return 0
+    if opts.against_encode:
+        against_encode(opts.against_encode, dev, card_id)
         return 0
     build_s, per_lib = build_all()
     emit('setup', card=card_id, torch=torch.__version__,
@@ -679,19 +779,34 @@ def main() -> int:
              mp_per_s=n * mp / (med['total'] / 1e3), card=card_id)
 
     # 4. the encode kernel against its plain version, every lane of the
-    # gray frame's and the RGB 9/7 frame's group batches.  The RGB input
-    # is the port's card decode of rgb_2048x1080_97.j2c (8-bit planes).
+    # gray frame's, the RGB 9/7 frame's and the 12-bit frame's group
+    # batches.  The RGB input is the port's card decode of
+    # rgb_2048x1080_97.j2c (8-bit planes).
     rgb_planes = [a.astype(np.int32) for a in out]
     kernels['ht_cleanup_encode'] = k3_vs_plain(
-        [gray_ref], dev, 'gray_2048x1080', card_id, reversible=True)
+        [gray_ref], dev, 'gray_2048x1080', card_id, sweep=True,
+        reversible=True)
     k3_vs_plain(rgb_planes, dev, 'rgb_2048x1080_97_ict', card_id,
-                reversible=False)
+                sweep=True, reversible=False)
+    frame12 = np.random.RandomState(12).randint(0, 4096, NOISE12) \
+        .astype(np.int32)
+    k3_vs_plain([frame12], dev, 'noise12_2047x1079', card_id,
+                reversible=True, bit_depth=12)
+    # ... and 10 columns narrower: edge codeblocks 58, 61 and 62 wide, an
+    # odd number of quads a row (2047's edge codeblocks are 63 wide, 32
+    # quads)
+    k3_vs_plain([np.ascontiguousarray(frame12[:, :NOISE12[1] - 10])], dev,
+                'noise12_2037x1079', card_id, reversible=True, bit_depth=12)
 
-    # reference for the RGB encode: the port's own CPU encode (plain
-    # versions of every stage); it launches no kernel
+    # references for the RGB and 12-bit encodes: the port's own CPU
+    # encode (plain versions of every stage); it launches no kernel
     t0 = time.perf_counter()
     rgb_enc_cpu = encode_gpu(rgb_planes, device='cpu', reversible=False)
     rgb_enc_cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    enc12_cpu = encode_gpu(frame12, device='cpu', reversible=True,
+                           bit_depth=12)
+    enc12_cpu_s = time.perf_counter() - t0
 
     # 5. the encode path, counted: every launch from here to the reading
     # below is the fused encode's own
@@ -703,6 +818,11 @@ def main() -> int:
     enc_rgb = encode_gpu(rgb_planes, device='cuda', reversible=False)
     if enc_rgb != rgb_enc_cpu:
         raise AssertionError('RGB 9/7 ICT encode differs from the CPU encode')
+    enc12 = encode_gpu(frame12, device='cuda', reversible=True,
+                       bit_depth=12)
+    if enc12 != enc12_cpu:
+        raise AssertionError('12-bit frame encode differs from the CPU '
+                             'encode')
     streams, _ = encode_frames([gray_ref] * BURST, dev)
     if any(st != gray_j2c for st in streams):
         raise AssertionError('an 8-frame burst stream differs from the '
@@ -720,6 +840,13 @@ def main() -> int:
          decodes_to_source=True)
     emit('e2e_encode_rgb_97_ict', bytes=len(enc_rgb), equal_to_cpu=True,
          cpu_reference_s=rgb_enc_cpu_s)
+    back = decode_gpu(enc12, device='cuda')
+    if len(back) != 1 or not np.array_equal(back[0], frame12):
+        raise AssertionError('the 12-bit encode does not decode to the '
+                             'frame')
+    emit('e2e_encode_noise12', shape=list(frame12.shape), bytes=len(enc12),
+         equal_to_cpu=True, decodes_to_source=True,
+         cpu_reference_s=enc12_cpu_s)
     emit('encode_burst', frames=BURST, equal_to_single=True)
     emit('encode_path_launches', **enc_launches)
 

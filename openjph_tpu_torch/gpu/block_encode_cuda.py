@@ -3,7 +3,9 @@ the port of the JAX package's encode_cleanup_pallas_cat (K3).
 
 A CPU tensor takes the plain PyTorch version (block_encode.py).  A CUDA
 tensor launches the kernel or raises: there is no fallback.  The kernel
-is compiled with nvcc for sm_90a at first use into
+encodes a codeblock's quad rows on one warp and its MEL stream on a
+second, ``PER_BLOCK`` codeblocks per CUDA block.
+It is compiled with nvcc for sm_90a at first use into
 build/openjph_tpu_torch/ and bound with ctypes; it runs on the current
 CUDA stream and allocates nothing.  ``LAUNCHES`` counts its launches.
 """
@@ -12,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import os
 
+import numpy as np
 import torch
 
 from . import block_encode as plain
@@ -20,39 +23,87 @@ from ._build import load_library, nvcc_path
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'csrc',
                    'ht_cleanup_encode.cu')
 LAUNCHES = {'ht_cleanup_encode': 0}
-# codeblocks (threads) per CUDA block.  On an H100 (700 W), 2 beat 1, 4,
-# 8 and 32 on the 2048x1080 gray frame's 604 lanes (chip_smoke.py's
-# sweep), as for the decoder: lanes of a warp diverge at every branch
-THREADS = 2
+# codeblocks per CUDA block (two warps each); they share one copy of the
+# encode tables in shared memory.  chip_smoke.py sweeps 1, 2, 4 and 8 on
+# the 2048x1080 gray frame (608 lanes, and 8 x 608 as in a burst) and the
+# RGB frame (1,816): on an H100 80GB HBM3 (700 W) 2 and 4 came within 3%
+# of each other on one frame, 2 first by 1-6% on the larger batches, 1 and
+# 8 some 30-45% behind; PERF.md has the times.
+PER_BLOCK = 2
 
 _lib = None
 _TABLES = {}
+
+
+def build(src: str = SRC, name: str = 'ht_cleanup_encode'):
+    """Compile ``src``, a source with this kernel's C interface, with
+    nvcc for sm_90a and load it with its entry point bound."""
+    nvcc = nvcc_path()
+    lib = load_library(
+        name, [src],
+        lambda out: [nvcc, '-gencode', 'arch=compute_90a,code=sm_90a',
+                     '-std=c++17', '-O3', '-shared', '-Xcompiler', '-fPIC',
+                     '-o', out, src])
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.ht_cleanup_encode.restype = ci
+    lib.ht_cleanup_encode.argtypes = [vp, ci, ci, vp, vp, vp, vp, ci, ci,
+                                      ci, vp, vp, ci, ci, ci, ci, vp]
+    return lib
 
 
 def load():
     """Build (once) and load the kernel library."""
     global _lib
     if _lib is None:
-        nvcc = nvcc_path()
-        lib = load_library(
-            'ht_cleanup_encode', [SRC],
-            lambda out: [nvcc, '-gencode', 'arch=compute_90a,code=sm_90a',
-                         '-std=c++17', '-O3', '-shared', '-Xcompiler',
-                         '-fPIC', '-o', out, SRC])
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.ht_cleanup_encode.restype = ci
-        lib.ht_cleanup_encode.argtypes = [vp, ci, ci, vp, vp, vp, vp, ci, ci,
-                                          ci, vp, vp, ci, ci, ci, ci, vp]
-        _lib = lib
+        _lib = build()
     return _lib
 
 
+# MelEnc's exponent of each state k
+_MEL_EXP = (0, 0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 4, 5)
+
+
+def mel_tables():
+    """The kernel's MEL coder tables, by MelEnc::encode's rules.  States
+    s = (k, run) in order of k, then run (run < 2**exp(k)): 85 of them.
+    Returns (step uint32 [85, 16, 2]: for state s and four events, event i
+    at bit i of the index, the codewords' bits LSB-first | their count <<
+    24, and the next state; kr uint32 [85]: k | run << 4)."""
+    states = [(k, r) for k in range(13) for r in range(1 << _MEL_EXP[k])]
+    index = {st: i for i, st in enumerate(states)}
+    step = np.zeros((len(states), 16, 2), np.uint32)
+    for s, (k0, r0) in enumerate(states):
+        for nib in range(16):
+            k, run, bits, n = k0, r0, 0, 0
+            for i in range(4):
+                e = _MEL_EXP[k]
+                if not (nib >> i) & 1:
+                    run += 1
+                    if run >= 1 << e:
+                        bits |= 1 << n
+                        n += 1
+                        run, k = 0, min(k + 1, 12)
+                else:
+                    # '0', then the e low bits of the run MSB-first
+                    rev = int(f'{run:0{e}b}'[::-1], 2) if e else 0
+                    bits |= (rev << 1) << n
+                    n += 1 + e
+                    run, k = 0, max(k - 1, 0)
+            step[s, nib] = (bits | n << 24, index[(k, run)])
+    kr = np.array([k | r << 4 for k, r in states], np.uint32)
+    return step, kr
+
+
 def _tables(device) -> torch.Tensor:
-    """enc_vlc0|1 (4,096) + enc_uvlc's four columns (4 x 75), int32."""
+    """enc_vlc0|1 (4,096), enc_uvlc's four columns (4 x 75), the MEL step
+    table (2,720) and the MEL states' (k, run) (85), int32."""
     key = str(device)
     if key not in _TABLES:
         vlc, uvlc = plain.tables('cpu')
-        t = torch.cat([vlc, uvlc.reshape(-1)]).to(torch.int32)
+        step, kr = mel_tables()
+        mel = torch.from_numpy(np.concatenate([step.reshape(-1), kr])
+                               .view(np.int32).astype(np.int64))
+        t = torch.cat([vlc, uvlc.reshape(-1), mel]).to(torch.int32)
         _TABLES[key] = t.to(device)
     return _TABLES[key]
 
@@ -85,9 +136,22 @@ def encode_cleanup(buf, p, width: int, height: int, caps, qhl):
         raise ValueError('lane counts differ')
     if buf.data_ptr() % 16:
         raise ValueError('buf must be 16-byte aligned')
+    out = launch(load(), PER_BLOCK, buf, p, width, height, caps, qhl)
+    LAUNCHES['ht_cleanup_encode'] += 1
+    return out
+
+
+def launch(lib, per_block: int, buf, p, width: int, height: int, caps,
+           qhl, zeroed: bool = False):
+    """One launch of ``lib``'s entry on checked CUDA tensors.  This
+    checkout's kernel writes every word of ``cat``; ``zeroed`` hands an
+    older source that leaves the words past each used prefix to its
+    caller (``chip_smoke.py --against-encode``) a zeroed ``cat``."""
+    dev = buf.device
+    n, hp, wp = buf.shape
     wm, wv, ws = (int(c) for c in caps)
-    lib = load()
-    cat = torch.zeros((n, wm + wv + ws), dtype=torch.int32, device=dev)
+    alloc = torch.zeros if zeroed else torch.empty
+    cat = alloc((n, wm + wv + ws), dtype=torch.int32, device=dev)
     bits = torch.empty((n, 3), dtype=torch.int32, device=dev)
     ovf = torch.empty((n,), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
@@ -95,12 +159,11 @@ def encode_cleanup(buf, p, width: int, height: int, caps, qhl):
         rc = lib.ht_cleanup_encode(
             buf.data_ptr(), hp, wp, p.data_ptr(), qhl.data_ptr(),
             _tables(dev).data_ptr(), cat.data_ptr(), wm, wv, ws,
-            bits.data_ptr(), ovf.data_ptr(), n, width, height, THREADS,
+            bits.data_ptr(), ovf.data_ptr(), n, width, height, per_block,
             stream)
     if rc != 0:
         raise RuntimeError(f'ht_cleanup_encode launch failed: CUDA error '
                            f'{rc}')
-    LAUNCHES['ht_cleanup_encode'] += 1
     return cat, bits, ovf
 
 

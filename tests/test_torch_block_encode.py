@@ -6,9 +6,10 @@ On the CPU the wrapper runs the kernel's plain PyTorch version
 stuffer (native.pack_from_dense) and must give, lane for lane, the bytes
 of the JAX records path: tpu/block_encode.encode_cleanup_core, then
 openjph_tpu.native.pack_cleanup_segments.  One small case goes against
-the Pallas kernel itself in interpret mode, word for word.  The CUDA
-kernel is held against the plain version by the test marked ``cuda``,
-which runs only where a card is.
+the Pallas kernel itself in interpret mode, word for word.  The table
+that drives the kernel's MEL coder is held to the plain MEL coder.  The
+CUDA kernel is held against the plain version by the test marked
+``cuda``, which runs only where a card is.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +21,7 @@ from openjph_tpu.tpu.block_encode import encode_cleanup_core
 from openjph_tpu.tpu.block_encode_pallas import encode_cleanup_pallas_cat
 
 from openjph_tpu_torch import native
+from openjph_tpu_torch.gpu import block_encode as plain
 from openjph_tpu_torch.gpu import block_encode_cuda as E
 from openjph_tpu_torch.gpu.encode_pipeline import _ebucket
 
@@ -107,9 +109,14 @@ def _records(buf, p, w, hs):
 
 @pytest.mark.parametrize('w,h,kmax,mixed', [
     (16, 16, 8, False), (32, 16, 5, False), (4, 4, 8, False),
-    (6, 10, 12, False), (13, 11, 9, True)])
+    (6, 10, 12, False), (13, 11, 9, True),
+    # the shapes the card holds the kernel to, 8 lanes each
+    (64, 64, 12, False),   # qw = 32: one full warp of quads
+    (128, 32, 8, False),   # two chunks of 32 quads a row
+    (32, 128, 8, False),   # half a warp, 64 quad rows
+    (63, 64, 9, True)])    # odd qw at warp width, mixed heights
 def test_plain_segments_match_records(w, h, kmax, mixed):
-    n = 24
+    n = 24 if w * h <= 512 else 8
     heights = [[h, h - 3, h // 2, 1][i % 4] for i in range(n)] \
         if mixed else None
     buf, hs = _blocks(w * 100 + kmax, n, w, h, kmax, heights)
@@ -123,6 +130,82 @@ def test_plain_segments_match_records(w, h, kmax, mixed):
     out, lens = _stuff(cat, bits, caps, h * w * 5 + 256)
     for i, seg in enumerate(_records(buf, p, w, hs)):
         assert bytes(out[i, :lens[i]]) == seg, f'lane {i} (h={hs[i]})'
+
+
+def _mel_bits(vals, lens):
+    """(bits, count) of one lane's MEL records, LSB-first."""
+    acc, nb = 0, 0
+    for v, ln in zip(vals, lens):
+        acc |= (int(v) & ((1 << int(ln)) - 1)) << nb
+        nb += int(ln)
+    return acc, nb
+
+
+def test_mel_tables_match_plain_coder():
+    """The kernel's MEL coder steps four events a table entry and codes
+    the last 0-3 one at a time.  Every entry (each state and four events)
+    is the plain version's coder (block_encode._Mel) started in that
+    state; whole runs of seeded events of every density, tail included,
+    give the plain version's MEL words."""
+    step, kr = E.mel_tables()
+    assert step.shape == (85, 16, 2) and kr.shape == (85,)
+    tables = E._tables('cpu')
+    assert tables.numel() == 4096 + 300 + step.size + kr.size
+    assert (4096 + 300) % 4 == 0   # the step table is 16-byte aligned
+    # every entry: lane 16 s + nib starts in state s and takes nib's events
+    n = 85 * 16
+    mel = plain._Mel(n, 'cpu')
+    mel.k = torch.from_numpy((kr.astype(np.int64) & 15).repeat(16))
+    mel.run = torch.from_numpy((kr.astype(np.int64) >> 4).repeat(16))
+    nib = np.tile(np.arange(16), 85)
+    for i in range(4):
+        mel.event(torch.ones(n, dtype=torch.bool),
+                  torch.from_numpy((nib >> i) & 1 == 1))
+    vals, lens = torch.stack(mel.vals), torch.stack(mel.lens)
+    nxt = (mel.k | mel.run << 4).numpy()
+    for lane in range(n):
+        s, b = divmod(lane, 16)
+        bits, cnt = _mel_bits(vals[:, lane], lens[:, lane])
+        assert int(step[s, b, 0]) == bits | cnt << 24, (s, b)
+        assert kr[step[s, b, 1]] == nxt[lane], (s, b)
+    # whole runs, the coder as the kernel drives it
+    rng = np.random.RandomState(7)
+    n = 64
+    for density in (0.02, 0.2, 0.5, 0.9):
+        ev = rng.rand(n, 203) < density
+        mel = plain._Mel(n, 'cpu')
+        for j in range(ev.shape[1]):
+            mel.event(torch.ones(n, dtype=torch.bool),
+                      torch.from_numpy(ev[:, j]))
+        mel.terminate()
+        vals, lens = torch.stack(mel.vals), torch.stack(mel.lens)
+        full = ev.shape[1] // 4 * 4
+        for i in range(n):
+            s, acc, nb = 0, 0, 0
+            for j in range(0, full, 4):
+                word, s = step[s, sum(int(ev[i, j + b]) << b
+                                      for b in range(4))]
+                acc |= (int(word) & 0xFFFFFF) << nb
+                nb += int(word) >> 24
+            k, run = int(kr[s]) & 15, int(kr[s]) >> 4
+            for j in range(full, ev.shape[1]):
+                e = E._MEL_EXP[k]
+                if not ev[i, j]:
+                    run += 1
+                    if run >= 1 << e:
+                        acc |= 1 << nb
+                        nb += 1
+                        run, k = 0, min(k + 1, 12)
+                else:
+                    rev = int(f'{run:0{e}b}'[::-1], 2) if e else 0
+                    acc |= (rev << 1) << nb
+                    nb += 1 + e
+                    run, k = 0, max(k - 1, 0)
+            if run > 0:
+                acc |= 1 << nb
+                nb += 1
+            assert (acc, nb) == _mel_bits(vals[:, i], lens[:, i]), \
+                (density, i)
 
 
 def test_plain_matches_pallas_interpret():
@@ -174,7 +257,10 @@ def test_cuda_kernel_matches_plain():
         pytest.skip('needs a CUDA device')
     dev = torch.device('cuda')
     E.reset_launches()
-    for w, h, kmax, heights in ((16, 16, 8, None), (13, 11, 9, [11, 3, 6])):
+    shapes = ((16, 16, 8, None), (13, 11, 9, [11, 3, 6]),
+              (64, 64, 12, None), (128, 32, 8, None), (32, 128, 8, None),
+              (63, 64, 9, [64, 61, 32]))
+    for w, h, kmax, heights in shapes:
         n = 48
         hh = None if heights is None else [heights[i % 3] for i in range(n)]
         buf, hs = _blocks(w, n, w, h, kmax, hh)
@@ -187,4 +273,4 @@ def test_cuda_kernel_matches_plain():
         torch.cuda.synchronize()
         for g, r in zip(got, want):
             assert torch.equal(g.cpu(), r)
-    assert E.LAUNCHES['ht_cleanup_encode'] == 2
+    assert E.LAUNCHES['ht_cleanup_encode'] == len(shapes)
