@@ -7,8 +7,15 @@ columns), drives the fused frame decode end to end (gray 5/3 in both
 runner modes, RGB 9/7 ICT, an 8-frame burst) and the fused frame encode
 end to end (gray 5/3 against the repository's codestream, RGB 9/7 ICT
 and the 12-bit frame against the port's CPU encode, an 8-frame burst),
-times each stage (device stages with CUDA events, host stages with the
-host clock), and prints one JSON line per result.
+and the multi-pass decode: the refinement-pass kernel against its plain
+version on every lane of the two multi-pass test streams (as coded and
+with its gates forced) and of seeded synthetic batches (seven codeblock
+shapes, odd ones among them), the cleanup and
+refinement kernels together against the C++ scalar codeblock decoder,
+and both streams decoded end to end against the port's CPU decode (both
+runner modes, an 8-frame burst).  It times each stage (device stages
+with CUDA events, host stages with the host clock), and prints one JSON
+line per result.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --against OTHER.cu          # another build of
@@ -35,6 +42,10 @@ DATA = os.path.join(ROOT, 'bench_data')
 GRAY = os.path.join(DATA, 'gray_2048x1080_rev.j2c')
 GRAY_NPY = os.path.join(DATA, 'gray_2048x1080.npy')
 RGB = os.path.join(DATA, 'rgb_2048x1080_97.j2c')
+# the multi-pass streams (openjph_tpu_torch/testdata/README.md)
+TESTDATA = os.path.join(ROOT, 'openjph_tpu_torch', 'testdata')
+GRAY3 = os.path.join(TESTDATA, 'gray_2048x1080_rev_p3.j2c')
+CAUSAL2 = os.path.join(TESTDATA, 'gray_512x256_rev_p2_causal.j2c')
 BURST = 8
 NOISE = (1080, 2048)  # the seeded noise frame of the block-shape phase
 # the seeded 12-bit frame of the encode phases: its odd sizes give edge
@@ -58,6 +69,12 @@ OPS_PER_SAMPLE = 36
 # context store, ~6 for the ring's stores: ~250, or 62 per sample (the MEL
 # coder, a table step per four events, adds under one per sample)
 ENC_OPS_PER_SAMPLE = 62
+# integer operations per codeblock sample of the refinement kernel,
+# counted off ht_refine_decode.cu: ~8 for the significance words (load,
+# test, index, atomic OR), ~6 for SigProp (a group's ~45-op context over
+# 16 samples, ~10 a candidate, ~10 a newly significant sample), ~6 for
+# MagRef (~20 a step over up to 32 samples, ~12 a significant sample)
+REFINE_OPS_PER_SAMPLE = 20
 
 
 def card() -> str:
@@ -106,6 +123,7 @@ def build_all():
     from openjph_tpu_torch.gpu import _build
     from openjph_tpu_torch.gpu import block_decode_cuda as K
     from openjph_tpu_torch.gpu import block_encode_cuda as E
+    from openjph_tpu_torch.gpu import block_refine_cuda as R
     errors = []
 
     def run(fn):
@@ -115,7 +133,7 @@ def build_all():
             errors.append(e)
 
     threads = [threading.Thread(target=run, args=(f,))
-               for f in (K.load, E.load, native.have_native,
+               for f in (K.load, E.load, R.load, native.have_native,
                          lambda: phase_builds(0), lambda: phase_builds(1))]
     t0 = time.perf_counter()
     for t in threads:
@@ -141,25 +159,36 @@ def phase_builds(stop: int):
     return _PHASE_LIBS[stop]
 
 
-def group_views(buf, plan, raw: bool, words=None):
-    """Per lane group: the kernel's arguments as the runner slices them
-    out of the uploaded buffers."""
-    import torch
+def runner_views(data: bytes, dev):
+    """(plan, raw (src, views), dense (src, views)) of one frame: its
+    buffers uploaded to the card in both runner modes and sliced per
+    lane group as the runner slices them (_Runner.views)."""
+    from openjph_tpu_torch.gpu.pipeline import (GpuDecoder, _build_plan,
+                                                _make_runner, _pack_dense,
+                                                _pack_device, upload)
+    dec = GpuDecoder(data, device=dev)
+    plan = _build_plan(dec)
+    pairs = [(dec, plan)]
+    return (plan,
+            _make_runner(plan, 1, dev, True).views(
+                *upload(_pack_device(pairs), dev)),
+            _make_runner(plan, 1, dev, False).views(
+                *upload(_pack_dense(pairs), dev)))
+
+
+def cleanup_args(src, views, raw: bool):
+    """Per lane group: the cleanup kernel's arguments as the runner
+    builds them, with the group's meta columns."""
     from openjph_tpu_torch.gpu.pipeline import _window
-    tl = sum(g.n_pad for g in plan.groups)
-    meta = (buf[buf.shape[0] - tl * 8:] if raw else buf).reshape(tl, 8)
-    out, s0 = [], 0
-    for g in plan.groups:
-        c = [meta[s0:s0 + g.n_pad, k].contiguous() for k in range(8)]
-        s0 += g.n_pad
+    out = []
+    for g, c, _ in views:
         if raw:
-            args = (buf.view(torch.uint8), c[0], c[1], c[2], c[6], g.w, g.h,
-                    c[7], g.words)
+            args = (src, c[0], c[1], c[2], c[6], g.w, g.h, c[7], g.words)
         else:
             wm, wv, ws = g.words
-            args = (_window(words, c[0], c[1], wm, -1),
-                    _window(words, c[2], c[3], wv, 0),
-                    _window(words, c[4], c[5], ws, -1), c[6], g.w, g.h,
+            args = (_window(src, c[0], c[1], wm, -1),
+                    _window(src, c[2], c[3], wv, 0),
+                    _window(src, c[4], c[5], ws, -1), c[6], g.w, g.h,
                     c[7])
         out.append((g, args, c))
     return out
@@ -167,22 +196,16 @@ def group_views(buf, plan, raw: bool, words=None):
 
 def frame_views(data: bytes, dev):
     """(plan, raw-mode group views, dense-mode group views) of one
-    frame's kernel arguments on the card."""
-    from openjph_tpu_torch.gpu.pipeline import (GpuDecoder, _build_plan,
-                                                _pack_burst, _pack_device,
-                                                upload)
-    dec = GpuDecoder(data, device=dev)
-    plan = _build_plan(dec)
-    (rbuf,) = upload(_pack_device([(dec, plan)]), dev)
-    words, dmeta = upload(_pack_burst([dec._group_arrays(plan)]), dev)
-    return (plan, group_views(rbuf, plan, True),
-            group_views(dmeta, plan, False, words))
+    frame's cleanup-kernel arguments on the card."""
+    plan, (rsrc, rv), (dsrc, dv) = runner_views(data, dev)
+    return plan, cleanup_args(rsrc, rv, True), cleanup_args(dsrc, dv, False)
 
 
 def corrupt_views(views, seed: int, lanes: int = 64, flips: int = 4):
     """The raw-mode views with ``flips`` seeded byte flips in the MagSgn
     and MEL / VLC bytes of about ``lanes`` live lanes, and dense-mode
     views of the same damaged bytes (the plain unstuffer's word rows)."""
+    import types
     import numpy as np
     import torch
     from openjph_tpu_torch.gpu.block_decode import to_i32_bits
@@ -414,7 +437,9 @@ def against(src: str, dev, card_id: str):
 
 def decode_frames(datas, dev, raw: bool = True):
     """Bytes -> frames in device memory through the fused decode, with
-    per-stage times.  Returns (outputs, times in ms)."""
+    per-stage times; Tier-1 is split into the cleanup kernel, the
+    refinement kernel (multi-pass groups only) and the masking of dead
+    lanes.  Returns (outputs, times in ms)."""
     import torch
     from openjph_tpu_torch.gpu.pipeline import (GpuDecoder, _build_plan,
                                                 _make_runner, _pack_dense,
@@ -424,29 +449,37 @@ def decode_frames(datas, dev, raw: bool = True):
     for d in datas:
         dec = GpuDecoder(d, device=dev, raw=raw)
         plan = _build_plan(dec)
-        if plan is None or plan.has_refine:
+        if plan is None:
             raise AssertionError('stream left the fused path')
         pairs.append((dec, plan))
     t1 = time.perf_counter()
     args = _pack_device(pairs) if raw else _pack_dense(pairs)
     t2 = time.perf_counter()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
     ev[0].record()
     dargs = upload(args, dev)
     ev[1].record()
     runner = _make_runner(pairs[0][1], len(datas), dev, raw)
-    decs, errs = runner.tier1(*dargs)
+    src, views = runner.views(*dargs)
+    outs = runner.cleanup(src, views)
     ev[2].record()
-    outs = runner.rest(decs)
+    outs = runner.refine(src, views, outs)
     ev[3].record()
+    decs, errs = runner.mask(views, outs)
+    ev[4].record()
+    outs = runner.rest(decs)
+    ev[5].record()
     torch.cuda.synchronize()
     t3 = time.perf_counter()
     if bool(torch.cat(errs).any()):
         raise AssertionError('a lane of a valid stream was flagged')
     times = {'host_t2_plan': (t1 - t0) * 1e3, 'pack': (t2 - t1) * 1e3,
              'upload': ev[0].elapsed_time(ev[1]),
-             'tier1': ev[1].elapsed_time(ev[2]),
-             'rest_of_graph': ev[2].elapsed_time(ev[3]),
+             'tier1': ev[1].elapsed_time(ev[4]),
+             'tier1_cleanup': ev[1].elapsed_time(ev[2]),
+             'tier1_refine': ev[2].elapsed_time(ev[3]),
+             'tier1_mask': ev[3].elapsed_time(ev[4]),
+             'rest_of_graph': ev[4].elapsed_time(ev[5]),
              'total': (t3 - t0) * 1e3}
     return outs, times
 
@@ -688,6 +721,263 @@ def from_sot(stream: bytes) -> bytes:
     return stream[at:]
 
 
+# ---- the refinement-pass kernel (K4) ----
+
+def k4_modes():
+    """(name, wrapper, plain version, raw?) of both reader modes."""
+    from openjph_tpu_torch.gpu import block_refine_cuda as R
+    return (('ht_refine_decode_raw', R.refine_raw, R.refine_raw_plain, True),
+            ('ht_refine_decode_dense', R.refine, R.refine_plain, False))
+
+
+def k4_groups(data: bytes, dev):
+    """(plan, {raw?: [(group, dec, refine args)]}) of one frame's lane
+    groups that have refinement passes: dec is the card's own cleanup
+    kernel output, the args follow it as the runner passes them."""
+    from openjph_tpu_torch.gpu import block_decode_cuda as K
+    from openjph_tpu_torch.gpu.pipeline import _window
+    plan, rsv, dsv = runner_views(data, dev)
+    out = {}
+    for raw, (src, views) in ((True, rsv), (False, dsv)):
+        out[raw] = []
+        for (g, args, c), (_, _, rc) in zip(cleanup_args(src, views, raw),
+                                            views):
+            if rc is None:
+                continue
+            d, _ = (K.decode_cleanup_raw if raw else K.decode_cleanup)(*args)
+            if raw:
+                kargs = (src, rc[0], rc[1], c[6], rc[4], rc[5], rc[6], g.w,
+                         g.h)
+            else:
+                kargs = (_window(src, rc[0], rc[1], g.rwords[0], 0),
+                         _window(src, rc[2], rc[3], g.rwords[1], 0), c[6],
+                         rc[4], rc[5], rc[6], g.w, g.h)
+            out[raw].append((g, d, kargs))
+    return plan, out
+
+
+def k4_gates(groups, raw: bool, npasses=None, flip=False, h_lim=None):
+    """The same groups with every lane's npasses and h_lim set where
+    given, and its causal flag flipped when ``flip``."""
+    import torch
+    i = 4 if raw else 3
+    res = []
+    for g, d, a in groups:
+        a = list(a)
+        if npasses is not None:
+            a[i] = torch.full_like(a[i], npasses)
+        if h_lim is not None:
+            a[i + 1] = torch.full_like(a[i + 1], h_lim)
+        if flip:
+            a[i + 2] = (a[i + 2] == 0).to(torch.int32)
+        res.append((g, d, tuple(a)))
+    return res
+
+
+def hold_k4(kname, kern, ref, groups, label: str):
+    """The refinement kernel against its plain version on every lane of
+    ``groups``: the same cleanup output, streams and gates.  The kernel
+    refines a copy of dec in place.  Returns (plain ms, kernel outputs)."""
+    import torch
+    plain_ms = 0.0
+    outs = []
+    for g, d, a in groups:
+        got = kern(d.clone(), *a)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = ref(d, *a)
+        torch.cuda.synchronize()
+        plain_ms += (time.perf_counter() - t0) * 1e3
+        if not torch.equal(got, want):
+            bad = int((got != want).flatten(1).any(1).sum())
+            raise AssertionError(f'{kname}: {bad} lanes differ from the '
+                                 f'plain version in group {g.w}x{g.h} '
+                                 f'({label})')
+        outs.append(got)
+    return plain_ms, outs
+
+
+def k4_ms(kern, groups) -> float:
+    """Device ms of the kernel on every group: each launch refines a fresh
+    copy of dec, and the copy's own time is taken off."""
+    import torch
+    ms = 0.0
+    for _, d, a in groups:
+        work = torch.empty_like(d)
+        ms += cuda_ms(lambda: kern(work.copy_(d), *a), 20) \
+            - cuda_ms(lambda: work.copy_(d), 20)
+    return ms
+
+
+def k4_bound(groups, raw: bool):
+    """(bytes, ops) the refinement of ``groups`` must move and do: the
+    dec round trip, the refinement bytes (raw) or the words read (dense),
+    32 bytes of meta a lane; REFINE_OPS_PER_SAMPLE a sample."""
+    nbytes = ops = 0
+    for g, d, a in groups:
+        n = d.shape[0]
+        nbytes += 2 * d.numel() * 4 + 32 * n
+        if raw:
+            nbytes += int(a[2].sum())
+        else:
+            nbytes += 4 * (a[0].numel() + a[1].numel())
+        ops += d.numel() * REFINE_OPS_PER_SAMPLE
+    return nbytes, ops
+
+
+def k4_vs_plain(data: bytes, dev, name: str, card_id: str, rows=None):
+    """Both reader modes of the refinement kernel against their plain
+    versions on every lane of a multi-pass frame, as coded and with the
+    gates forced (npasses 2 and 3 everywhere, causal flipped); the
+    cleanup and refinement kernels together against the C++ scalar
+    codeblock decoder on every live lane.  With ``rows``, times the
+    kernel and fills in its kernels-line rows."""
+    import numpy as np
+    from openjph_tpu_torch import native
+    from openjph_tpu_torch.gpu import block_refine_cuda as R
+    plan, modes = k4_groups(data, dev)
+    buf = np.frombuffer(data, np.uint8)
+    starts = {}
+    s0 = 0
+    for g in plan.groups:
+        starts[g.gid] = s0
+        s0 += g.n_pad
+    for kname, kern, ref, raw in k4_modes():
+        groups = modes[raw]
+        if not groups:
+            raise AssertionError(f'{name} has no multi-pass lane group')
+        plain_ms, outs = hold_k4(kname, kern, ref, groups, 'as coded')
+        for npasses in (2, 3):
+            hold_k4(kname, kern, ref,
+                    k4_gates(groups, raw, npasses=npasses, flip=True),
+                    f'npasses {npasses}, causal flipped')
+        # the cleanup and refinement kernels against the scalar decoder
+        live = 0
+        for (g, _, _), got in zip(groups, outs):
+            got = got.cpu().numpy().view(np.uint32)
+            for i in range(len(g.members)):
+                pos, lcup, _, p, qhl, npass, l2, h, cs = \
+                    (int(x[starts[g.gid] + i]) for x in plan.lanes)
+                if pos < 0:
+                    continue
+                want = native.decode_codeblock(
+                    buf[pos:pos + lcup + l2], 30 - p, npass, lcup, l2, g.w,
+                    h, bool(cs))
+                if not np.array_equal(got[i, :h], want):
+                    raise AssertionError(f'{kname}: lane {i} of group '
+                                         f'{g.w}x{g.h} differs from the '
+                                         f'scalar decoder')
+                live += 1
+        fields = {}
+        if rows is not None:
+            ms = k4_ms(kern, groups)
+            nbytes, ops = k4_bound(groups, raw)
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = ops / FP32_OPS_PER_S * 1e3
+            rows[kname] = {
+                'name': kname, 'route': 'cuda',
+                'source': 'openjph_tpu_torch/gpu/csrc/ht_refine_decode.cu',
+                'replaces': 'openjph_tpu/tpu/block_refine.py:215',
+                'launches': 0, 'max_abs_err': 0, 'ms': ms,
+                'plain_ms': plain_ms, 'bound_ms': max(bytes_ms, ops_ms),
+                'bound_by': 'bytes' if bytes_ms >= ops_ms else 'operations',
+                'library_ms': None, 'bit_exact': True,
+            }
+            # where the time goes, by the kernel's own gates: npasses 1
+            # (launch and lane exit), h_lim 0 (the block staged and
+            # written back, the streams read, no pass), npasses 2 (no
+            # MagRef); and the codeblocks per CUDA block
+            split = {k: k4_ms(kern, k4_gates(groups, raw, **kw))
+                     for k, kw in (('npasses1', dict(npasses=1)),
+                                   ('hlim0', dict(h_lim=0)),
+                                   ('npasses2', dict(npasses=2)))}
+            sweep = {}
+            default = R.PER_BLOCK
+            try:
+                for k in (1, 2, 4, 8):
+                    R.PER_BLOCK = k
+                    sweep[k] = k4_ms(kern, groups)
+            finally:
+                R.PER_BLOCK = default
+            emit('k4_split', frame=name, kernel=kname,
+                 launch_ms=split['npasses1'],
+                 stage_streams_writeback_ms=split['hlim0']
+                 - split['npasses1'],
+                 sigprop_and_significance_ms=split['npasses2']
+                 - split['hlim0'],
+                 magref_ms=ms - split['npasses2'], all_ms=ms, card=card_id)
+            fields = dict(kernel_ms=ms, plain_ms=plain_ms,
+                          bytes_moved=nbytes, bound_ms=rows[kname]['bound_ms'],
+                          codeblocks_per_block=R.PER_BLOCK,
+                          kernel_ms_by_codeblocks_per_block=sweep)
+        emit('k4_vs_plain', frame=name, kernel=kname,
+             groups=[(g.w, g.h, g.n_pad, list(g.rwords))
+                     for g, _, _ in groups],
+             gates=['as coded', 'npasses 2, causal flipped',
+                    'npasses 3, causal flipped'],
+             bit_exact=True, scalar_decoder_equal_lanes=live,
+             card=card_id, **fields)
+
+
+def k4_synthetic(dev, card_id: str, lanes: int = 256):
+    """The refinement kernel against its plain version on seeded batches
+    of 64x64, 128x32, 32x128 and 36x20 codeblocks, and of 13x7, 62x33 and
+    3x64 ones (4x4 groups cut by the width and the height): random
+    cleanup samples (any 32-bit value), mixed heights (h_lim), passes,
+    causal flags and p (0 to 30, so shifts by p - 2 leave 0..31), and
+    refinement segments of random bytes under 2,047, rich in 0xFF, 0x7F
+    and bytes above 0x8F.  Both reader modes: the dense rows are the
+    plain raw readers' output on the card."""
+    import types
+    import numpy as np
+    import torch
+    from openjph_tpu_torch.gpu.block_decode import to_i32_bits
+    from openjph_tpu_torch.gpu.unstuff import raw_refine_to_dense
+    rng = np.random.RandomState(4)
+    alpha = np.array([0xFF, 0x7F, 0x8F, 0x90, 0xFE, 0x00, 0x80, 0xFF],
+                     np.uint8)
+    for w, h in ((64, 64), (128, 32), (32, 128), (36, 20), (13, 7),
+                 (62, 33), (3, 64)):
+        p = rng.randint(0, 31, lanes)
+        on = rng.rand(lanes, h, w) < rng.choice([0.02, 0.3, 0.9],
+                                                (lanes, 1, 1))
+        vals = rng.randint(1, 1 << 32, (lanes, h, w), dtype=np.uint64)
+        dec = np.where(on, vals, 0).astype(np.uint32)
+        h_lim = rng.randint(0, h + 1, lanes)
+        h_lim[:lanes // 4] = h
+        npasses = rng.randint(1, 4, lanes)
+        causal = rng.randint(0, 2, lanes)
+        len2 = rng.randint(0, 2047, lanes)
+        blob = np.zeros(int(len2.sum()) + 512, np.uint8)
+        roff, at = [], 256
+        for i in range(lanes):
+            k = int(len2[i])
+            blob[at:at + k] = np.where(rng.rand(k) < 0.5,
+                                       rng.choice(alpha, k),
+                                       rng.randint(0, 256, k))
+            roff.append(at)
+            at += k
+
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+        d = torch.from_numpy(dec.view(np.int32)).to(dev)
+        blob_t = torch.from_numpy(blob).to(dev)
+        gates = (t(p), t(npasses), t(h_lim), t(causal), w, h)
+        nw = (int(len2.max()) * 8 + 31) // 32 + 3
+        spp, mrp = raw_refine_to_dense(blob_t, t(roff), t(len2), nw)
+        args = {True: (blob_t, t(roff), t(len2)) + gates,
+                False: (to_i32_bits(spp).contiguous(),
+                        to_i32_bits(mrp).contiguous()) + gates}
+        g = types.SimpleNamespace(w=w, h=h)
+        for kname, kern, ref, raw in k4_modes():
+            plain_ms, _ = hold_k4(kname, kern, ref, [(g, d, args[raw])],
+                                  f'synthetic {w}x{h}')
+            emit('k4_synthetic', block=[w, h], kernel=kname, lanes=lanes,
+                 bit_exact=True, max_len2=int(len2.max()),
+                 plain_ms=plain_ms, card=card_id)
+
+
 def main() -> int:
     import argparse
     import numpy as np
@@ -706,6 +996,7 @@ def main() -> int:
         return 1
     from openjph_tpu_torch.gpu import block_decode_cuda as K
     from openjph_tpu_torch.gpu import block_encode_cuda as E
+    from openjph_tpu_torch.gpu import block_refine_cuda as R
     from openjph_tpu_torch.gpu.encode_pipeline import encode_gpu
     from openjph_tpu_torch.gpu.pipeline import decode_gpu
 
@@ -854,6 +1145,64 @@ def main() -> int:
     for n in (1, BURST):
         med, p75 = timed(lambda: encode_frames([gray_ref] * n, dev), 40)
         emit('encode_timing', frames=n, runs=40, median_ms=med,
+             total_p75_ms=p75, mp_per_s=n * mp / (med['total'] / 1e3),
+             card=card_id)
+
+    # 7. the refinement kernel against its plain version, every lane of
+    # both multi-pass streams and of seeded synthetic batches; the
+    # cleanup and refinement kernels against the scalar decoder
+    gray3 = open(GRAY3, 'rb').read()
+    causal2 = open(CAUSAL2, 'rb').read()
+    k4_vs_plain(gray3, dev, 'gray_2048x1080_rev_p3', card_id, rows=kernels)
+    k4_vs_plain(causal2, dev, 'gray_512x256_rev_p2_causal', card_id)
+    k4_synthetic(dev, card_id)
+
+    # references of the multi-pass streams: the port's own CPU decode
+    # (plain versions of every stage); it launches no kernel
+    refs = {}
+    for name, data in (('gray_2048x1080_rev_p3', gray3),
+                       ('gray_512x256_rev_p2_causal', causal2)):
+        t0 = time.perf_counter()
+        refs[name] = decode_gpu(data, device='cpu', raw=False)
+        refs[name + '_s'] = time.perf_counter() - t0
+
+    # 8. the multi-pass decode path, counted: every launch from here to
+    # the reading below is its own
+    K.reset_launches()
+    R.reset_launches()
+    for name, data in (('gray_2048x1080_rev_p3', gray3),
+                       ('gray_512x256_rev_p2_causal', causal2)):
+        ref = refs[name]
+        for raw in (True, False):
+            out = decode_gpu(data, device='cuda', raw=raw)
+            if len(out) != len(ref) or not all(
+                    np.array_equal(a, b) for a, b in zip(out, ref)):
+                raise AssertionError(f'{name} differs from the CPU decode '
+                                     f'(raw={raw})')
+            emit('e2e_multipass', stream=name, raw=raw,
+                 bit_exact_vs_cpu=True, shape=list(out[0].shape),
+                 cpu_reference_s=refs[name + '_s'])
+    outs, _ = decode_frames([gray3] * BURST, dev)
+    ref_t = torch.from_numpy(
+        refs['gray_2048x1080_rev_p3'][0].astype(np.uint8)).to(dev)
+    frames = outs[0][0]
+    if tuple(frames.shape) != (BURST,) + tuple(ref_t.shape) or any(
+            not torch.equal(frames[f], ref_t) for f in range(BURST)):
+        raise AssertionError('a frame of the 3-pass burst differs')
+    emit('burst_multipass', frames=BURST, bit_exact_vs_cpu=True)
+    mp_launches = {**K.LAUNCHES, **R.LAUNCHES}
+    for k, v in mp_launches.items():
+        if v == 0:
+            raise AssertionError(f'{k} was not launched on the multi-pass '
+                                 f'decode path')
+    for k in R.LAUNCHES:
+        kernels[k]['launches'] = mp_launches[k]
+    emit('multipass_path_launches', **mp_launches)
+
+    # 9. multi-pass stage times, one frame and a burst (median of the runs)
+    for n in (1, BURST):
+        med, p75 = timed(lambda: decode_frames([gray3] * n, dev), 40)
+        emit('timing_multipass', frames=n, runs=40, median_ms=med,
              total_p75_ms=p75, mp_per_s=n * mp / (med['total'] / 1e3),
              card=card_id)
 

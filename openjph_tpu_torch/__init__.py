@@ -4,7 +4,8 @@ ported to PyTorch and CUDA for one NVIDIA H100.
 The host layer (codestream syntax, Tier-2, planning, packing, byte
 stuffing) is a copy of the JAX package's; the device paths are torch
 ops plus hand-written CUDA kernels for the HT cleanup-pass decode and
-encode.  Entry points run on the card (``device='cuda'``) unless the
+encode and for the refinement passes (SigProp / MagRef) of multi-pass
+codeblocks, which the decode takes; the encode is cleanup-only.  Entry points run on the card (``device='cuda'``) unless the
 caller passes ``device='cpu'``, which runs the kernels' plain PyTorch
 versions; a CUDA request without a card raises RuntimeError.
 """
@@ -15,8 +16,8 @@ from .gpu.pipeline import GpuDecoder, decode_gpu  # noqa: F401
 
 def decode(data: bytes, device='cuda', skip_res: int = 0,
            raw: bool = True):
-    """Decode a .j2c codestream to per-component numpy planes on
-    ``device`` (see :func:`decode_gpu`)."""
+    """Decode a .j2c codestream, multi-pass codeblocks included, to
+    per-component numpy planes on ``device`` (see :func:`decode_gpu`)."""
     return decode_gpu(data, device=device, skip_res=skip_res, raw=raw)
 
 

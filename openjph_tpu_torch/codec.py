@@ -7,7 +7,8 @@ quantization parameters, tile-part division and codestream assembly.
 A copy of the JAX package's ``codec.py`` without its scalar Tier-1
 paths (the structural flow of ojph_codestream_local.cpp /
 ojph_tile.cpp).  The device halves live in ``gpu/pipeline.py``
-(decode) and ``gpu/encode_pipeline.py`` (encode).
+(decode, multi-pass codeblocks included) and ``gpu/encode_pipeline.py``
+(encode, cleanup pass only).
 """
 from __future__ import annotations
 

@@ -1,0 +1,184 @@
+"""Wrapper of the CUDA HT refinement-pass decoder, SigProp and MagRef
+(csrc/ht_refine_decode.cu), with its two entry points:
+
+- :func:`refine` (dense readers): host-unstuffed SigProp / MagRef word
+  rows, as the JAX package's runner feeds tpu/block_refine.py::refine_core
+  in dense mode;
+- :func:`refine_raw` (raw readers; unstuff_spp / unstuff_mrp): each lane's
+  stuffed refinement segment in the packed segment blob.
+
+A CPU tensor takes the plain PyTorch version (block_refine.py, plus
+unstuff.py for the raw readers).  A CUDA tensor launches the kernel or
+raises: there is no fallback.  The kernel refines one codeblock per warp,
+``PER_BLOCK`` codeblocks per CUDA block, writing ``dec`` in place.  It is
+compiled with nvcc for sm_90a at first use into build/openjph_tpu_torch/
+and bound with ctypes; it runs on the current CUDA stream and allocates
+nothing.  ``LAUNCHES`` counts the kernel launches of each entry point.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+
+import torch
+
+from . import block_refine as plain
+from ._build import load_library, nvcc_path
+from .block_decode_cuda import _check, _i32
+from .unstuff import raw_refine_to_dense
+
+SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'csrc',
+                   'ht_refine_decode.cu')
+LAUNCHES = {'ht_refine_decode_dense': 0, 'ht_refine_decode_raw': 0}
+# codeblocks (warps) per CUDA block.  chip_smoke.py's sweep over 1, 2, 4
+# and 8 on the 3-pass 2048x1080 gray frame's 768 lanes put 1 first in both
+# reader modes on an H100 80GB HBM3 (700 W), 3% ahead of 4; PERF.md has
+# the times.  A warp's ~19 KB of shared memory then sets the warps an SM
+# holds, not the block size.
+PER_BLOCK = 1
+
+_lib = None
+
+
+def build(src: str = SRC, name: str = 'ht_refine_decode'):
+    """Compile ``src``, a source with this kernel's C interface, with
+    nvcc for sm_90a and load it with its entry points bound."""
+    nvcc = nvcc_path()
+    lib = load_library(
+        name, [src],
+        lambda out: [nvcc, '-gencode', 'arch=compute_90a,code=sm_90a',
+                     '-std=c++17', '-O3', '-shared', '-Xcompiler', '-fPIC',
+                     '-o', out, src])
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.ht_refine_decode_dense.restype = ci
+    lib.ht_refine_decode_dense.argtypes = (
+        [vp, vp, vp, ci, ci, vp, vp, vp, vp, ci, ci, ci, ci, vp])
+    lib.ht_refine_decode_raw.restype = ci
+    lib.ht_refine_decode_raw.argtypes = (
+        [vp, vp, ctypes.c_longlong, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,
+         vp])
+    return lib
+
+
+def load():
+    """Build (once) and load the kernel library."""
+    global _lib
+    if _lib is None:
+        _lib = build()
+    return _lib
+
+
+def _check_lanes(dec, width: int, height: int, **lanes):
+    n = dec.shape[0]
+    if dec.dtype != torch.int32 or tuple(dec.shape) != (n, height, width):
+        raise ValueError(f'dec must be int32 [N, {height}, {width}], got '
+                         f'{dec.dtype} {tuple(dec.shape)}')
+    for name, t in lanes.items():
+        _i32(t)
+        if t.shape[0] != n:
+            raise ValueError(f'{name} has {t.shape[0]} lanes, dec {n}')
+
+
+# plain version of the dense mode
+refine_plain = plain.refine_core
+
+
+def refine(dec, spp, mrp, p, npasses, h_lim, causal, width: int,
+           height: int):
+    """SigProp and MagRef of N same-shape codeblocks from dense word rows.
+
+    dec: int32 [N, height, width], the cleanup output (uint32 bit
+    patterns); spp / mrp: int32 [N, W*] holding uint32 words; p = 30 -
+    missing_msbs, npasses, h_lim (true heights) and causal (nonzero: the
+    stripe-causal mode) int32 [N].  Returns the refined samples: on the
+    card ``dec`` itself, refined in place; on the CPU a new tensor."""
+    if dec.device.type == 'cpu':
+        return refine_plain(dec, spp, mrp, p, npasses, h_lim, causal, width,
+                            height)
+    if dec.device.type != 'cuda':
+        raise RuntimeError(f'no HT refinement decoder for {dec.device}')
+    _check_lanes(dec, width, height, spp=spp, mrp=mrp, p=p,
+                 npasses=npasses, h_lim=h_lim, causal=causal)
+    _check(dec.device, dec=dec, spp=spp, mrp=mrp, p=p, npasses=npasses,
+           h_lim=h_lim, causal=causal)
+    launch_dense(load(), PER_BLOCK, dec, spp, mrp, p, npasses, h_lim, causal,
+                 width, height)
+    LAUNCHES['ht_refine_decode_dense'] += 1
+    return dec
+
+
+def launch_dense(lib, per_block: int, dec, spp, mrp, p, npasses, h_lim,
+                 causal, width: int, height: int):
+    """One launch of ``lib``'s dense entry on checked CUDA tensors."""
+    dev = dec.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.ht_refine_decode_dense(
+            dec.data_ptr(), spp.data_ptr(), mrp.data_ptr(), spp.shape[1],
+            mrp.shape[1], p.data_ptr(), npasses.data_ptr(), h_lim.data_ptr(),
+            causal.data_ptr(), dec.shape[0], width, height, per_block, stream)
+    if rc != 0:
+        raise RuntimeError(f'ht_refine_decode_dense launch failed: CUDA '
+                           f'error {rc}')
+    return dec
+
+
+def refine_raw_plain(dec, blob, roff, len2, p, npasses, h_lim, causal,
+                     width: int, height: int):
+    """Plain version of the raw-reader mode: unstuff.raw_refine_to_dense
+    into rows that cover every lane's segment with zero words to spare,
+    then block_refine.refine_core.  A lane whose range leaves the blob
+    reads as an empty segment, as in the kernel."""
+    off = roff.to(torch.int64)
+    n = len2.to(torch.int64)
+    bad = (off < 0) | (n < 0) | (off + n > blob.shape[0])
+    n = torch.where(bad, torch.zeros_like(n), n)
+    nwords = (int(n.max()) * 8 + 31) // 32 + 3 if n.numel() else 3
+    spp, mrp = raw_refine_to_dense(blob, off, n, nwords)
+    return plain.refine_core(dec, spp, mrp, p, npasses, h_lim, causal,
+                             width, height)
+
+
+def refine_raw(dec, blob, roff, len2, p, npasses, h_lim, causal,
+               width: int, height: int):
+    """SigProp and MagRef of N same-shape codeblocks straight from the
+    segment blob: lane i's refinement segment is blob[roff[i] : roff[i] +
+    len2[i]] (uint8 blob; int32 roff, len2).  The other arguments and the
+    result are :func:`refine`'s."""
+    if blob.device.type == 'cpu':
+        return refine_raw_plain(dec, blob, roff, len2, p, npasses, h_lim,
+                                causal, width, height)
+    if blob.device.type != 'cuda':
+        raise RuntimeError(f'no HT refinement decoder for {blob.device}')
+    if blob.dtype != torch.uint8:
+        raise ValueError(f'blob must be uint8, got {blob.dtype}')
+    _check_lanes(dec, width, height, roff=roff, len2=len2, p=p,
+                 npasses=npasses, h_lim=h_lim, causal=causal)
+    _check(blob.device, dec=dec, blob=blob, roff=roff, len2=len2, p=p,
+           npasses=npasses, h_lim=h_lim, causal=causal)
+    launch_raw(load(), PER_BLOCK, dec, blob, roff, len2, p, npasses, h_lim,
+               causal, width, height)
+    LAUNCHES['ht_refine_decode_raw'] += 1
+    return dec
+
+
+def launch_raw(lib, per_block: int, dec, blob, roff, len2, p, npasses,
+               h_lim, causal, width: int, height: int):
+    """One launch of ``lib``'s raw entry on checked CUDA tensors."""
+    dev = dec.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.ht_refine_decode_raw(
+            dec.data_ptr(), blob.data_ptr(), blob.shape[0], roff.data_ptr(),
+            len2.data_ptr(), p.data_ptr(), npasses.data_ptr(),
+            h_lim.data_ptr(), causal.data_ptr(), dec.shape[0], width, height,
+            per_block, stream)
+    if rc != 0:
+        raise RuntimeError(f'ht_refine_decode_raw launch failed: CUDA '
+                           f'error {rc}')
+    return dec
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0

@@ -35,7 +35,7 @@ from .pipeline import resolve_device
 from .quant import tx_to_cb
 
 _ROADMAP_MULTIPASS = ('multi-pass (SigProp/MagRef) encoding is not ported '
-                      'yet: ROADMAP.md Queue A, "Multi-pass refinement"')
+                      'yet: ROADMAP.md Queue A, "Multi-pass encode"')
 _ROADMAP_COVERAGE = ('{} is not ported to the fused encode yet: '
                      'ROADMAP.md Queue A, "Resilient decode and fused-path '
                      'coverage contracts"')

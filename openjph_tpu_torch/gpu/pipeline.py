@@ -1,5 +1,6 @@
 """Fused frame decode on one GPU: host Tier-2 parse -> plan -> pack ->
-one upload -> Tier-1 (the CUDA HT cleanup decoder) -> placement ->
+one upload -> Tier-1 (the CUDA HT cleanup decoder, then the CUDA
+refinement-pass decoder on lane groups with SigProp / MagRef) -> placement ->
 dequantization -> inverse DWT -> inverse colour -> sample conversion,
 with the frames left in device memory until the caller takes them.
 
@@ -13,8 +14,9 @@ a burst of same-geometry frames is batched along the lanes (frame f of
 group g occupies lanes [f*n_pad, (f+1)*n_pad)).
 
 Two runner modes: ``raw=True`` ships one buffer (the stuffed segment
-bytes plus per-lane meta) and the kernel unstuffs them;
-``raw=False`` ships host-unstuffed dense words plus meta.
+bytes plus per-lane meta) and the kernels unstuff them;
+``raw=False`` ships host-unstuffed dense words plus meta.  A plan with
+multi-pass codeblocks adds a second meta plane (rmeta) per lane.
 """
 from __future__ import annotations
 
@@ -33,6 +35,8 @@ from . import color as clr
 from . import dwt
 from .bitprep import prep_cleanup_streams
 from .block_decode_cuda import decode_cleanup, decode_cleanup_raw
+from .block_refine import prep_refine_streams
+from .block_refine_cuda import refine, refine_raw
 from .quant import tx_from_cb
 
 # Blob and dense-buffer margins keep the JAX package's layout
@@ -40,9 +44,6 @@ from .quant import tx_from_cb
 # packers produce identical buffers.
 _ROW = 512
 
-_ROADMAP_MULTIPASS = ('multi-pass (SigProp/MagRef) codeblocks are not '
-                      'ported yet: ROADMAP.md Queue A, "Multi-pass '
-                      'refinement"')
 _ROADMAP_COVERAGE = ('this stream needs the coverage contracts that are '
                      'not ported yet (resilient decode, broken '
                      'codeblocks, more than 30 bit planes): ROADMAP.md '
@@ -410,11 +411,12 @@ def _build_plan(dec, tile_indices=None) -> Optional[_Plan]:
 
 class _Runner:
     """The fused decode of ``nframes`` same-geometry frames on
-    ``device``.  ``tier1(*args)`` runs the HT cleanup decoder per lane
-    group and zeroes dead and broken lanes; ``rest(decs)`` places the
-    codeblocks into band planes and reconstructs; calling the runner
-    does both and returns (err [lanes] bool, outputs), outputs being
-    per tile a tuple of per-component [nframes, h, w] tensors."""
+    ``device``.  ``tier1(*args)`` runs, per lane group, the HT cleanup
+    decoder, then the refinement-pass decoder where the group has
+    SigProp / MagRef, and zeroes dead and broken lanes; ``rest(decs)``
+    places the codeblocks into band planes and reconstructs; calling the
+    runner does both and returns (err [lanes] bool, outputs), outputs
+    being per tile a tuple of per-component [nframes, h, w] tensors."""
 
     def __init__(self, plan: _Plan, nframes: int, device, raw: bool):
         self.plan = plan
@@ -433,33 +435,86 @@ class _Runner:
         return torch.cat(errs), self.rest(decs)
 
     def tier1(self, *args):
+        src, views = self.views(*args)
+        outs = self.refine(src, views, self.cleanup(src, views))
+        return self.mask(views, outs)
+
+    def views(self, *args):
+        """(src, per group (group, meta columns, rmeta columns or None)):
+        src is the uint8 blob (raw) or the words buffer (dense); the
+        columns are int32 [F * n_pad] tensors."""
         F, tl = self.F, self.tl
+        n = F * tl * 8
+        rmeta = None
         if self.raw:
             buf, = args
-            blob = buf.view(torch.uint8)
-            meta = buf[buf.shape[0] - F * tl * 8:]
+            src = buf.view(torch.uint8)
+            tail = buf[buf.shape[0] - n * (2 if self.plan.has_refine
+                                           else 1):]
+            meta = tail[:n]
+            if self.plan.has_refine:
+                rmeta = tail[n:]
+        elif self.plan.has_refine:
+            src, meta, rmeta = args
         else:
-            words, meta = args
-        meta = meta.reshape(F, tl, 8)
-        decs, errs = [], []
-        for g, s0 in zip(self.plan.groups, self.lane_starts):
-            mg = meta[:, s0:s0 + g.n_pad].reshape(F * g.n_pad, 8)
-            col = [mg[:, k].contiguous() for k in range(8)]
+            src, meta = args
+
+        def cols(m, g, s0):
+            mg = m.reshape(F, tl, 8)[:, s0:s0 + g.n_pad] \
+                .reshape(F * g.n_pad, 8)
+            return [mg[:, k].contiguous() for k in range(8)]
+
+        return src, [(g, cols(meta, g, s0),
+                      cols(rmeta, g, s0) if g.rwords[0] > 0 else None)
+                     for g, s0 in zip(self.plan.groups, self.lane_starts)]
+
+    def cleanup(self, src, views):
+        """The HT cleanup decoder per group: [(dec, err)]."""
+        outs = []
+        for g, col, _ in views:
             p, qhl = col[6], col[7]
             if self.raw:
                 # meta: lane_off, ms_n, sh_n, 0, 0, 0, p, qhl
-                d, e = decode_cleanup_raw(blob, col[0], col[1], col[2], p,
-                                          g.w, g.h, qhl, g.words)
+                outs.append(decode_cleanup_raw(src, col[0], col[1], col[2],
+                                               p, g.w, g.h, qhl, g.words))
             else:
                 # meta: mel_off, lm, vlc_off, lv, ms_off, ls, p, qhl
                 wm, wv, ws = g.words
-                mel = _window(words, col[0], col[1], wm, -1)
-                vlc = _window(words, col[2], col[3], wv, 0)
-                ms = _window(words, col[4], col[5], ws, -1)
-                d, e = decode_cleanup(mel, vlc, ms, p, g.w, g.h, qhl)
-            # dead lanes and broken lanes decode to zero blocks (the
-            # caller raises on the error flags before using them)
-            ok = (qhl > 0) & ~e
+                mel = _window(src, col[0], col[1], wm, -1)
+                vlc = _window(src, col[2], col[3], wv, 0)
+                ms = _window(src, col[4], col[5], ws, -1)
+                outs.append(decode_cleanup(mel, vlc, ms, p, g.w, g.h, qhl))
+        return outs
+
+    def refine(self, src, views, outs):
+        """SigProp / MagRef on the groups that have them, before the
+        masking of dead and broken lanes (tpu/pipeline.py:791-821)."""
+        res = []
+        for (g, col, rc), (d, e) in zip(views, outs):
+            if rc is not None:
+                p = col[6]
+                if self.raw:
+                    # rmeta: roff, len2, 0, 0, npasses, h_true, causal, 0
+                    d = refine_raw(d, src, rc[0], rc[1], p, rc[4], rc[5],
+                                   rc[6], g.w, g.h)
+                else:
+                    # rmeta: spp_off, lsp, mrp_off, lmr, npasses, h_true,
+                    # causal, 0
+                    spp = _window(src, rc[0], rc[1], g.rwords[0], 0)
+                    mrp = _window(src, rc[2], rc[3], g.rwords[1], 0)
+                    d = refine(d, spp, mrp, p, rc[4], rc[5], rc[6], g.w,
+                               g.h)
+            res.append((d, e))
+        return res
+
+    def mask(self, views, outs):
+        """Dead and broken lanes decode to zero blocks (the caller raises
+        on the error flags before using them).  Returns (decs [F, n_pad,
+        h, w] per group, errs of the groups' members)."""
+        F = self.F
+        decs, errs = [], []
+        for (g, col, _), (d, e) in zip(views, outs):
+            ok = (col[7] > 0) & ~e
             d = torch.where(ok[:, None, None], d, torch.zeros_like(d))
             decs.append(d.reshape(F, g.n_pad, g.h, g.w))
             errs.append(e.reshape(F, g.n_pad)[:, :len(g.members)]
@@ -569,15 +624,24 @@ def _pack_burst(frames_groups: List[List[dict]]):
     """Pack every stream word of a burst into ONE uint32 buffer and
     the per-lane bookkeeping into ONE int32 buffer.  meta columns per
     lane: mel_off, lm, vlc_off, lv, ms_off, ls, p, qhl (offsets
-    absolute into the words buffer; qhl == 0 marks a dead lane)."""
+    absolute into the words buffer; qhl == 0 marks a dead lane).
+    Groups with refinement passes pack their SigProp / MagRef streams
+    into the same buffer and contribute a second meta plane (rmeta:
+    spp_off, lsp, mrp_off, lmr, npasses, h_true, causal, 0); the return
+    grows to (words, meta, rmeta)."""
     chunks = []
     metas = []
+    rmetas = []
+    any_refine = any('spp' in gd for fg in frames_groups for gd in fg)
     maxw = 8  # widest stream window: the buffer's tail margin
     cursor = 0
     for fg in frames_groups:
         for gd in fg:
             cols = []
-            for k, lk in (('mel', 'lm'), ('vlc', 'lv'), ('ms', 'ls')):
+            keys = [('mel', 'lm'), ('vlc', 'lv'), ('ms', 'ls')]
+            if 'spp' in gd:
+                keys += [('spp', 'lsp'), ('mrp', 'lmr')]
+            for k, lk in keys:
                 arr, ln = gd[k], gd[lk]
                 w = arr.shape[1]
                 maxw = max(maxw, w)
@@ -587,11 +651,23 @@ def _pack_burst(frames_groups: List[List[dict]]):
                     [[0], np.cumsum(ln[:-1], dtype=np.int64)])
                 cursor += int(ln.sum())
                 cols += [offs.astype(np.int32), ln]
-            metas.append(np.stack(cols + [gd['p'], gd['qhl']], axis=1))
+            n = gd['p'].shape[0]
+            metas.append(np.stack(cols[:6] + [gd['p'], gd['qhl']], axis=1))
+            if any_refine:
+                if 'spp' in gd:
+                    rmetas.append(np.stack(
+                        cols[6:10] + [gd['np'], gd['ht'], gd['causal'],
+                                      np.zeros(n, np.int32)], axis=1))
+                else:
+                    rmetas.append(np.zeros((n, 8), np.int32))
     words = np.concatenate(chunks)
     dpad = _bucket_words(words.size + maxw + _ROW + 2)
     words = np.pad(words, (0, dpad - words.size))
     meta = np.ascontiguousarray(np.concatenate(metas, axis=0), np.int32)
+    if any_refine:
+        rmeta = np.ascontiguousarray(np.concatenate(rmetas, axis=0),
+                                     np.int32)
+        return words, meta.reshape(-1), rmeta.reshape(-1)
     return words, meta.reshape(-1)
 
 
@@ -649,13 +725,18 @@ def _blob_margin(pairs) -> int:
 def _pack_device_records(pairs):
     """Raw-bytes blob pack: per-lane byte positions come straight from
     plan.lanes; the native builder copies each lane's d[0:lcup-1] out
-    of its frame's stream buffer (byte lcup-2 OR'd 0xF)."""
+    of its frame's stream buffer (byte lcup-2 OR'd 0xF).  Refine plans
+    append each lane's refinement segment d[lcup : lcup+len2] right
+    after its cleanup bytes."""
+    refine = pairs[0][1].has_refine
     lcall = np.concatenate([p.lanes[1] for _, p in pairs])
     scall = np.concatenate([p.lanes[2] for _, p in pairs])
     pall = np.concatenate([p.lanes[3] for _, p in pairs])
     qall = np.concatenate([p.lanes[4] for _, p in pairs])
+    l2all = (np.concatenate([p.lanes[6] for _, p in pairs])
+             if refine else np.zeros_like(lcall))
     lead = _blob_margin(pairs)
-    sizes = lcall - 1
+    sizes = lcall - 1 + l2all
     base = np.zeros_like(sizes)
     base[0] = lead
     np.cumsum(sizes[:-1], out=base[1:])
@@ -676,34 +757,52 @@ def _pack_device_records(pairs):
     if dead.any():
         # canonical dummy segment byte for dead/padding lanes
         blob[base[dead]] = 0x0F
-    return _finish_device_pack(blob, base, lcall, scall, pall, qall)
+    rinfo = None
+    if refine:
+        l2_eff = np.where(ptrs != 0, l2all, 0)
+        native.copy_ranges_ptrs(np.where(l2_eff > 0, ptrs + lcall, 0),
+                                l2_eff, base + lcall - 1, blob)
+        rinfo = tuple(np.concatenate([p.lanes[k] for _, p in pairs])
+                      for k in (5, 6, 7, 8))
+    return _finish_device_pack(blob, base, lcall, scall, pall, qall, rinfo)
 
 
-def _finish_device_pack(blob, base, lcups, scups, p, qhl):
+def _finish_device_pack(blob, base, lcups, scups, p, qhl, rinfo=None):
     """Meta layout (lane_off, ms_n, sh_n, 0, 0, 0, p, qhl) appended to
-    the blob: one buffer, one upload.  Returns (buf,)."""
+    the blob: one buffer, one upload.  Refine plans append a second meta
+    plane (roff, len2, 0, 0, npasses, h_true, causal, 0) from ``rinfo``
+    = (npasses, len2, h_true, causal).  Returns (buf,)."""
     z = np.zeros_like(base)
     meta = np.stack([base, lcups - scups, scups - 1, z, z, z,
                      p.astype(np.int64), qhl.astype(np.int64)],
                     axis=1).astype(np.int32)
-    return (np.concatenate([blob.view(np.uint32),
-                            meta.reshape(-1).view(np.uint32)]),)
+    parts = [blob.view(np.uint32), meta.reshape(-1).view(np.uint32)]
+    if rinfo is not None:
+        npall, l2all, hall, call_ = rinfo
+        rmeta = np.stack([base + lcups - 1, l2all, z, z,
+                          npall.astype(np.int64), hall.astype(np.int64),
+                          call_.astype(np.int64), z],
+                         axis=1).astype(np.int32)
+        parts.append(rmeta.reshape(-1).view(np.uint32))
+    return (np.concatenate(parts),)
 
 
 def _pack_device(pairs):
     """Raw-bytes layout of a burst of (decoder, plan) pairs: each
-    lane's blob range is d[0:lcup-1] (byte lcup-2 OR'd 0xF); the
-    kernel reads MagSgn from its first lcup-scup bytes and MEL / VLC
-    from the rest, forward / backward.  Always returns (buf,)."""
-    if any(p.has_refine for _, p in pairs):
-        raise NotImplementedError(_ROADMAP_MULTIPASS)
+    lane's blob range is d[0:lcup-1] (byte lcup-2 OR'd 0xF), followed by
+    its refinement segment when it has one; the kernels read MagSgn from
+    the first lcup-scup bytes, MEL / VLC from the rest of the cleanup
+    bytes, forward / backward, and SigProp / MagRef from the refinement
+    segment, forward / backward.  Always returns (buf,)."""
     return _pack_device_records(pairs)
 
 
 def _pack_dense(pairs):
-    """Dense-words layout of a burst: (words, meta)."""
+    """Dense-words layout of a burst: (words, meta), and rmeta for a
+    refine plan (packed through the per-group arrays, as the JAX
+    package packs them)."""
     if any(p.has_refine for _, p in pairs):
-        raise NotImplementedError(_ROADMAP_MULTIPASS)
+        return _pack_burst([d._group_arrays(p) for d, p in pairs])
     return _pack_burst_fast(pairs)
 
 
@@ -724,9 +823,10 @@ class GpuDecoder(Decoder):
     Tier-2 runs in record mode (flat numpy arrays, no per-codeblock
     Python objects); the planner and packers consume the arrays.
     ``raw`` selects the raw-bytes runner (True) or the dense-words one.
-    Streams outside this slice (multi-pass codeblocks, resilient
-    decode, more than 30 bit planes, broken codeblocks) raise
-    NotImplementedError naming their ROADMAP.md item."""
+    Multi-pass codeblocks (SigProp / MagRef) are decoded on the device
+    after their cleanup pass.  Streams outside this slice (resilient
+    decode, more than 30 bit planes or 3 passes, broken codeblocks)
+    raise NotImplementedError naming their ROADMAP.md item."""
 
     def __init__(self, data: bytes, device='cuda', raw: bool = True,
                  **kwargs):
@@ -743,8 +843,6 @@ class GpuDecoder(Decoder):
         plan = _build_plan(self)
         if plan is None:
             raise NotImplementedError(_ROADMAP_COVERAGE)
-        if plan.has_refine:
-            raise NotImplementedError(_ROADMAP_MULTIPASS)
         return self._decode_fast(plan)
 
     def _any_wide_band(self) -> bool:
@@ -765,9 +863,9 @@ class GpuDecoder(Decoder):
     def _group_arrays(self, plan: _Plan) -> List[dict]:
         """Host prep per group: padded word planes + per-lane dense
         lengths (upper bounds; rows carry the guard fill beyond them)
-        + p / qhl."""
-        if plan.has_refine:
-            raise NotImplementedError(_ROADMAP_MULTIPASS)
+        + p / qhl, and for a group with refinement passes its SigProp /
+        MagRef word planes, their lengths and npasses / h_true /
+        causal."""
         out = []
         s0 = 0
         posa, lcupa, scupa, pa, qhla = plan.lanes[:5]
@@ -775,7 +873,10 @@ class GpuDecoder(Decoder):
         for g in plan.groups:
             sl = slice(s0, s0 + g.n_pad)
             s0 += g.n_pad
-            datas = [bytes(buf[posa[i]:posa[i] + lcupa[i]])
+            refine = g.rwords[0] > 0
+            # a refine group's lanes carry their refinement segment too
+            ext = plan.lanes[6] if refine else np.zeros_like(lcupa)
+            datas = [bytes(buf[posa[i]:posa[i] + lcupa[i] + ext[i]])
                      if posa[i] >= 0 else self._DUMMY
                      for i in range(sl.start, sl.stop)]
             lcups = lcupa[sl].copy()
@@ -783,7 +884,7 @@ class GpuDecoder(Decoder):
             streams = prep_cleanup_streams(datas, lcups, scups,
                                            min_words=g.words)
             wm, wv, ws = g.words
-            out.append({
+            gd = {
                 'mel': streams['mel'], 'vlc': streams['vlc'],
                 'ms': streams['ms'],
                 'lm': np.minimum(wm, (scups - 1) * 8 // 32 + 3)
@@ -794,7 +895,19 @@ class GpuDecoder(Decoder):
                       .astype(np.int32),
                 'p': pa[sl].astype(np.int32),
                 'qhl': qhla[sl].copy(),
-            })
+            }
+            if refine:
+                len2s = plan.lanes[6][sl].copy()
+                ref = prep_refine_streams(datas, lcups, len2s,
+                                          min_words=g.rwords)
+                lr = np.minimum(g.rwords[0], len2s * 8 // 32 + 3) \
+                    .astype(np.int32)
+                gd.update({'spp': ref['spp'], 'mrp': ref['mrp'],
+                           'lsp': lr, 'lmr': lr.copy(),
+                           'np': plan.lanes[5][sl].astype(np.int32),
+                           'ht': plan.lanes[7][sl].astype(np.int32),
+                           'causal': plan.lanes[8][sl].astype(np.int32)})
+            out.append(gd)
         return out
 
     def _lane_info(self, plan: _Plan):
@@ -823,7 +936,9 @@ class GpuDecoder(Decoder):
 def decode_gpu(data: bytes, device='cuda', skip_res: int = 0,
                raw: bool = True) -> List[np.ndarray]:
     """Decode a .j2c codestream on ``device``; returns per-component
-    int32 planes (numpy).  ``raw`` picks the runner's input layout."""
+    int32 planes (numpy).  Codeblocks with SigProp / MagRef passes are
+    refined on the device after their cleanup pass.  ``raw`` picks the
+    runner's input layout."""
     return GpuDecoder(data, device=device, raw=raw,
                       skipped_res_for_read=skip_res,
                       skipped_res_for_recon=skip_res).decode()

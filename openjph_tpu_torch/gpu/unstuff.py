@@ -20,17 +20,27 @@ states them in tpu/unstuff.py and bitprep.py, applied byte by byte:
   dropped bit ORs into the next byte's bit 0, and on the last byte it
   stays.  Past the end it reads 0.
 
+The refinement segment of a multi-pass codeblock (``len2`` bytes from
+``roff``; tpu/unstuff.py::unstuff_spp / unstuff_mrp) has two readers:
+
+- SigProp reads it forward as MagSgn does, but past the end it reads 0.
+- MagRef reads it backward from the last byte, LSB-first; a byte loses
+  its bit 7 when the byte read before it was above 0x8F (the first byte
+  read counts as following such a byte) and its low 7 bits are all
+  ones.  The dropped bit ORs into the next byte's bit 0, and on the last
+  byte it stays.  Past the end it reads 0.
+
 A byte's payload depends only on it and the two bytes before it.  This
 module applies the rules to whole lanes at once with tensor ops
 (per-byte payloads, an exclusive prefix sum of payload lengths, one
-scatter of the kept bits); the CUDA kernel does the same 128 bytes at a
+scatter of the kept bits); the CUDA kernels do the same 128 bytes at a
 time across a warp.
 """
 from __future__ import annotations
 
 import torch
 
-_MS, _MEL, _VLC = 0, 1, 2
+_MS, _MEL, _VLC, _SPP, _MRP = 0, 1, 2, 3, 4
 
 
 def _bitrev8(b):
@@ -44,9 +54,10 @@ def _payloads(blob, start, n, nbytes: int, kind: int):
     dev = blob.device
     j = torch.arange(nbytes, dtype=torch.int64, device=dev)[None, :]
     valid = j < n[:, None]
-    addr = start[:, None] - j if kind == _VLC else start[:, None] + j
+    backward = kind in (_VLC, _MRP)
+    addr = start[:, None] - j if backward else start[:, None] + j
     raw = blob[addr.clamp(0, blob.shape[0] - 1)].to(torch.int64)
-    fill = 0 if kind == _VLC else 0xFF
+    fill = 0xFF if kind in (_MS, _MEL) else 0
     b = torch.where(valid, raw, torch.full_like(raw, fill))
     prev = torch.cat([torch.zeros_like(b[:, :1]), b[:, :-1]], dim=1)
     eight = torch.full_like(b, 8)
@@ -55,7 +66,7 @@ def _payloads(blob, start, n, nbytes: int, kind: int):
         r = _bitrev8(b)
         return (torch.where(stuffed, r >> 1, r),
                 torch.where(stuffed, eight - 1, eight))
-    if kind == _MS:
+    if kind in (_MS, _SPP):
         stuffed = valid & (j > 0) & (prev == 0xFF)
         fl = torch.cat([torch.zeros_like(stuffed[:, :1]),
                         stuffed[:, :-1]], dim=1)
@@ -65,6 +76,13 @@ def _payloads(blob, start, n, nbytes: int, kind: int):
                 torch.where(stuffed, eight - 1, eight))
     first = j == 0
     last = j == (n[:, None] - 1)
+    if kind == _MRP:
+        drop = valid & (first | (prev > 0x8F)) & ((b & 0x7F) == 0x7F)
+        fl = torch.cat([torch.zeros_like(drop[:, :1]), drop[:, :-1]], dim=1)
+        v = b | torch.where(valid & fl, (prev >> 7) & 1, torch.zeros_like(b))
+        cut = drop & ~last
+        return (torch.where(cut, v & 0x7F, v),
+                torch.where(cut, eight - 1, eight))
     nib3 = ((b >> 4) & 7) == 7
     drop = ~first & valid & (prev > 0x8F) & ((b & 0x7F) == 0x7F)
     dang = torch.where(first, nib3, drop) & valid
@@ -107,15 +125,25 @@ def raw_to_dense(blob, lane_off, ms_n, sh_n, words):
     off = lane_off.to(torch.int64)
     msn = ms_n.to(torch.int64)
     shn = sh_n.to(torch.int64)
-
-    def stream(start, n, nw, kind):
-        # enough bytes to cover nw words even when every byte loses a
-        # bit (and the VLC nibble byte five)
-        nbytes = -(-(nw * 32 + 8) // 7) + 1
-        v, c = _payloads(blob, start, n, nbytes, kind)
-        return _assemble(v, c, nw)
-
-    ms = stream(off, msn, ws, _MS)
-    mel = stream(off + msn, shn, wm, _MEL)
-    vlc = stream(off + msn + shn - 1, shn, wv, _VLC)
+    ms = _stream(blob, off, msn, ws, _MS)
+    mel = _stream(blob, off + msn, shn, wm, _MEL)
+    vlc = _stream(blob, off + msn + shn - 1, shn, wv, _VLC)
     return mel, vlc, ms
+
+
+def _stream(blob, start, n, nw: int, kind: int):
+    # enough bytes to cover nw words even when every byte loses a bit
+    # (and the VLC nibble byte five)
+    nbytes = -(-(nw * 32 + 8) // 7) + 1
+    v, c = _payloads(blob, start, n, nbytes, kind)
+    return _assemble(v, c, nw)
+
+
+def raw_refine_to_dense(blob, roff, len2, nwords: int):
+    """blob: uint8 [B] segment blob; roff / len2 [N] int: each lane's
+    refinement segment.  Returns dense (spp [N, nwords], mrp [N, nwords])
+    int64 rows holding uint32 words, zero past each stream's payload."""
+    off = roff.to(torch.int64)
+    n = len2.to(torch.int64)
+    return (_stream(blob, off, n, nwords, _SPP),
+            _stream(blob, off + n - 1, n, nwords, _MRP))

@@ -1,7 +1,9 @@
 """Native (C++) host kernels, built at first use with g++ and bound via
 ctypes: the byte-level serial work around the device batches
 (packet-header parsing and emission, segment blob layout, host
-unstuffing, and the encoder's byte stuffing of device-packed words).
+unstuffing of the cleanup and refinement segments, and the encoder's
+byte stuffing of device-packed words), plus the scalar codeblock
+decoder that the kernels are held against.
 
 The source is a copy of the JAX package's ``ojtpu_native.cpp``.  The
 library is required: record-mode Tier-2 and the packers have no numpy
@@ -64,6 +66,21 @@ def _load():
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int64]
+        lib.prep_refine_streams.restype = None
+        lib.prep_refine_streams.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64]
+        lib.copy_ranges_ptrs.restype = None
+        lib.copy_ranges_ptrs.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int64]
+        lib.decode_codeblock.restype = ctypes.c_int
+        lib.decode_codeblock.argtypes = [
+            ctypes.c_void_p] + [ctypes.c_int64] * 7 + \
+            [ctypes.c_void_p] * 6
         _lib = lib
         return _lib
 
@@ -115,6 +132,38 @@ def prep_cleanup_streams(datas, lcups, scups, min_words=None):
     return {'mel': mel, 'vlc': vlc, 'ms': ms}
 
 
+def prep_refine_streams(datas, lcups, len2s, min_words=None,
+                        nthreads: int = 0):
+    """Native SigProp/MagRef stream prep; same contract as
+    gpu/block_refine.py::prep_refine_streams_np (datas[i] holds at least
+    lcups[i] + len2s[i] bytes)."""
+    lib = _load()
+    n = len(datas)
+    lcups = np.ascontiguousarray(lcups, dtype=np.int64)
+    len2s = np.ascontiguousarray(len2s, dtype=np.int64)
+    # join only the refinement tails (the cleanup prefix is never
+    # read here); the C++ sees each lane at offset 0 of its range
+    offsets = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(len2s, out=offsets[1:])
+    blob = b''.join(bytes(d[lcups[i]:lcups[i] + len2s[i]])
+                    for i, d in enumerate(datas))
+    data = np.frombuffer(blob, dtype=np.uint8)
+    zeros = np.zeros(n, dtype=np.int64)
+    l2max = int(len2s.max()) if n else 0
+    w = int((l2max * 8 + 1 + 31) // 32 + 2)
+    ws, wm = w, w
+    if min_words is not None:
+        ws = max(ws, min_words[0])
+        wm = max(wm, min_words[1])
+    spp = np.zeros((n, ws), dtype=np.uint32)
+    mrp = np.zeros((n, wm), dtype=np.uint32)
+    lib.prep_refine_streams(
+        data.ctypes.data, offsets.ctypes.data, zeros.ctypes.data,
+        len2s.ctypes.data, n, spp.ctypes.data, ws,
+        mrp.ctypes.data, wm, _threads(nthreads))
+    return {'spp': spp, 'mrp': mrp}
+
+
 def t2_parse_packet(data: np.ndarray, pos: int, data_left: int,
                     may_use_sop: bool, uses_eph: bool, skip_data: bool,
                     bands, out_cb, out_pos, st) -> int:
@@ -157,6 +206,22 @@ def build_seg_blob_ptrs(src_ptrs, lcups, lane_off, out: np.ndarray,
     return ev
 
 
+def copy_ranges_ptrs(src_ptrs, lens, lane_off, out: np.ndarray,
+                     nthreads: int = 0) -> np.ndarray:
+    """Copy lane byte ranges (absolute host pointers) into ``out`` at
+    lane_off; returns per-lane 0x7F-low byte counts."""
+    lib = _load()
+    src_ptrs = np.ascontiguousarray(src_ptrs, np.int64)
+    lens = np.ascontiguousarray(lens, np.int64)
+    lane_off = np.ascontiguousarray(lane_off, np.int64)
+    n = len(lane_off)
+    ev = np.zeros(n, np.int64)
+    lib.copy_ranges_ptrs(src_ptrs.ctypes.data, lens.ctypes.data, n,
+                         lane_off.ctypes.data, out.ctypes.data,
+                         ev.ctypes.data, _threads(nthreads))
+    return ev
+
+
 def prep_cleanup_dense(blob: bytes, offsets, lcups, scups, meta,
                        dense, nthreads: int = 0):
     """Unstuff a lane batch straight into the shared dense word
@@ -195,3 +260,46 @@ def pack_from_dense(dense: np.ndarray, meta: np.ndarray, out_stride: int):
                         out.ctypes.data, out_stride, lens.ctypes.data,
                         _threads(0))
     return out, lens
+
+
+_DEC_ERRORS = {
+    -1: (0x00080001, 'invalid scup'),
+    -2: (0x00080002, 'wrong codeblock length'),
+    -3: (0x00080003, 'more than 3 coding passes not supported'),
+    -4: (0x00080004, '64 bits insufficient for this codeblock'),
+    -5: (0x00080005, 'U_q exceeds missing_msbs + 2'),
+}
+
+
+def decode_codeblock(coded_data, missing_msbs, num_passes, len1, len2,
+                     width, height, stripe_causal=False):
+    """C++ scalar HT block decode (Cleanup, SigProp and MagRef, one
+    codeblock at a time); returns the sign-magnitude array (uint32 for
+    <=30 bit planes, uint64 beyond).  It is the independent per-block
+    reference of the decode kernels, never on the decode path.  Raises
+    ValueError on a malformed codeblock."""
+    lib = _load()
+    from ..coding.tables import get_tables
+    t = get_tables()
+    data = np.ascontiguousarray(
+        np.frombuffer(bytes(coded_data), np.uint8))
+    qh = (height + 1) >> 1
+    out = np.zeros((qh * 2, width), np.uint64)
+    rc = lib.decode_codeblock(
+        data.ctypes.data, int(missing_msbs), int(num_passes),
+        int(len1), int(len2), int(width), int(height),
+        int(bool(stripe_causal)),
+        np.ascontiguousarray(t['dec_vlc0'], np.uint16).ctypes.data,
+        np.ascontiguousarray(t['dec_vlc1'], np.uint16).ctypes.data,
+        np.ascontiguousarray(t['dec_uvlc0'], np.uint16).ctypes.data,
+        np.ascontiguousarray(t['dec_uvlc1'], np.uint16).ctypes.data,
+        np.ascontiguousarray(t['dec_uvlc0_bias'],
+                             np.uint8).ctypes.data,
+        out.ctypes.data)
+    if rc < 0:
+        code, msg = _DEC_ERRORS[rc]
+        raise ValueError(f'ojph error 0x{code:08X}: {msg}')
+    out = out[:height]
+    if missing_msbs < 30:
+        return out.astype(np.uint32)
+    return out

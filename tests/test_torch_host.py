@@ -1,7 +1,7 @@
 """The port's copied host layer held against the JAX package's on the
 same streams: decoder tables, record-mode Tier-2, the planner (key and
 per-lane arrays) and both packers (raw-bytes blob + meta, dense words +
-meta).  A codec carries no weights; these are the state the port takes
+meta, and the refine meta of multi-pass streams).  A codec carries no weights; these are the state the port takes
 over from the reference.  The JAX planner pads lane groups to multiples
 of 8 on the CPU, as the port does everywhere.
 """
@@ -126,9 +126,21 @@ def test_two_frame_pack_matches_jax(cases):
 
 
 def test_multipass_pack_raises(cases):
+    """Multi-pass streams no longer raise: both packers give buffers
+    byte-identical to the JAX package's, the refine meta plane (rmeta)
+    included, for one frame and for two."""
     stream, _ = cases['multipass']
-    td = tp.GpuDecoder(stream, device='cpu')
-    plan = tp._build_plan(td)
-    for pack in (tp._pack_device, tp._pack_dense):
-        with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-            pack([(td, plan)])
+    jd, td = _decoders(stream, 0)
+    jplan, tplan = jp._build_plan(jd), tp._build_plan(td)
+    assert tplan.has_refine
+    for n in (1, 2):
+        r = jp._pack_device([(jd, jplan)] * n)
+        assert r is not None
+        (jbuf,), _ = r
+        (tbuf,) = tp._pack_device([(td, tplan)] * n)
+        assert tbuf.dtype == jbuf.dtype and np.array_equal(tbuf, jbuf)
+        want = jp._pack([(jd, jplan)] * n)
+        got = tp._pack_dense([(td, tplan)] * n)
+        assert len(got) == len(want) == 3
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and np.array_equal(a, b)

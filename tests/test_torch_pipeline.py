@@ -171,6 +171,7 @@ def test_importing_the_port_loads_no_jax():
     code = ('import sys, openjph_tpu_torch, openjph_tpu_torch.gpu.pipeline\n'
             'import openjph_tpu_torch.gpu.encode_pipeline\n'
             'import openjph_tpu_torch.gpu.block_encode_cuda\n'
+            'import openjph_tpu_torch.gpu.block_refine_cuda\n'
             'bad = [m for m in sys.modules if m.split(".")[0] in '
             '("jax", "jaxlib", "openjph_tpu")]\n'
             'assert not bad, bad\n')
@@ -194,9 +195,6 @@ def test_cuda_is_the_default_and_never_falls_back():
 
 def test_streams_outside_the_slice_raise():
     img = _img(8, 48, 40)
-    multi = encode([img], reversible=True, num_decomps=2, ht_passes=3)
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        openjph_tpu_torch.decode_gpu(multi, device='cpu')
     plain = encode([img], reversible=True, num_decomps=2)
     with pytest.raises(NotImplementedError, match='ROADMAP.md'):
         openjph_tpu_torch.GpuDecoder(plain, device='cpu', resilient=True)
