@@ -10,7 +10,8 @@ and the 12-bit frame against the port's CPU encode, an 8-frame burst),
 and the multi-pass decode: the refinement-pass kernel against its plain
 version on every lane of the two multi-pass test streams (as coded and
 with its gates forced) and of seeded synthetic batches (seven codeblock
-shapes, odd ones among them), the cleanup and
+shapes, odd ones among them), also on lanes enough that a block's SigProp
+chains share one warp, split by its gates, the cleanup and
 refinement kernels together against the C++ scalar codeblock decoder,
 and both streams decoded end to end against the port's CPU decode (both
 runner modes, an 8-frame burst).  It times each stage (device stages
@@ -22,6 +23,8 @@ line per result.
                                                       # the decode kernel
     python3 chip_smoke.py --against-encode OTHER.cu   # ... of the encode
                                                       # kernel
+    python3 chip_smoke.py --against-refine OTHER.cu   # ... of the
+                                                      # refinement kernel
 
 Exits non-zero, printing no result, when no CUDA device is present or
 any phase fails.  The last line of standard output is
@@ -809,10 +812,51 @@ def k4_ms(kern, groups) -> float:
     return ms
 
 
-def k4_bound(groups, raw: bool):
-    """(bytes, ops) the refinement of ``groups`` must move and do: the
-    dec round trip, the refinement bytes (raw) or the words read (dense),
-    32 bytes of meta a lane; REFINE_OPS_PER_SAMPLE a sample."""
+def other_k4(lib, raw: bool, per_block: int):
+    """A launcher of another build of the refinement kernel's source
+    (``lib``) that takes the wrapper's arguments; its launches are not
+    counted."""
+    from openjph_tpu_torch.gpu import block_refine_cuda as R
+    launch = R.launch_raw if raw else R.launch_dense
+    return lambda *a: launch(lib, per_block, *a)
+
+
+def k4_burst(groups, raw: bool):
+    """The groups with every lane repeated BURST times, as the refine
+    step of an 8-frame burst sees them (the raw blob is shared)."""
+    res = []
+    for g, d, a in groups:
+        n = d.shape[0]
+        a = tuple(t.repeat(BURST, *([1] * (t.dim() - 1)))
+                  if hasattr(t, 'shape') and t.shape[0] == n
+                  and not (raw and i == 0) else t
+                  for i, t in enumerate(a))
+        res.append((g, d.repeat(BURST, 1, 1), a))
+    return res
+
+
+def k4_chain_groups(groups, raw: bool) -> int:
+    """SigProp groups of the longest chain: over the lanes with
+    npasses >= 2, the stripes below h_lim times the groups a stripe."""
+    import torch
+    i = 4 if raw else 3
+    best = 0
+    for g, d, a in groups:
+        h = d.shape[1]
+        n_sy, n_gx = (h + 3) // 4, (d.shape[2] + 3) // 4
+        hl = a[i + 1].to(torch.int64)
+        st = ((hl.clamp(min=0, max=4 * n_sy) + 3) // 4)[a[i] >= 2]
+        if st.numel():
+            best = max(best, int(st.max()) * n_gx)
+    return best
+
+
+def k4_bound_round_trip(groups, raw: bool):
+    """(bytes, ops) of the refinement of ``groups`` by the earlier, looser
+    count, kept so that times compare with those measured against it: the
+    dec round trip of every lane, the refinement bytes (raw) or all words
+    of the dense rows, 32 bytes of meta a lane; REFINE_OPS_PER_SAMPLE a
+    sample."""
     nbytes = ops = 0
     for g, d, a in groups:
         n = d.shape[0]
@@ -825,13 +869,71 @@ def k4_bound(groups, raw: bool):
     return nbytes, ops
 
 
+def k4_bound(groups, raw: bool, outs):
+    """(bytes, ops) the refinement of ``groups`` must move and do, counted
+    from this run's data (``outs``: the refined dec, equal to the plain
+    version's): the rows below h_lim of each lane with npasses >= 2 read
+    once; each sample the refinement changes written once; the
+    refinement bits once: raw, those lanes' segments; dense, their
+    SigProp rows up to the last nonzero word (the segment unstuffed;
+    MagRef's row holds the same bits reversed); npasses of every lane and
+    the other gates (raw also roff and len2) of those lanes;
+    REFINE_OPS_PER_SAMPLE a sample read."""
+    import torch
+    i = 4 if raw else 3
+    nbytes = ops = 0
+    for (g, d, a), out in zip(groups, outs):
+        n, h, w = d.shape
+        live = a[i] >= 2
+        rows = a[i + 1].to(torch.int64).clamp(min=0, max=h)[live]
+        read = int(rows.sum()) * w
+        nbytes += 4 * read + 4 * int((out != d).sum())
+        if raw:
+            nbytes += int(a[2][live].to(torch.int64).clamp(min=0).sum())
+        else:
+            nz = a[0][live] != 0
+            last = (nz.shape[1] - nz.flip(1).int().argmax(1)) * nz.any(1)
+            nbytes += 4 * int(last.sum())
+        nbytes += 4 * n + (20 if raw else 12) * int(live.sum())
+        ops += read * REFINE_OPS_PER_SAMPLE
+    return nbytes, ops
+
+
+def hold_k4_burst(kname, kern, groups, outs, raw: bool, label: str) -> int:
+    """The kernel on ``groups``' lanes repeated BURST times, as the
+    burst's refine step launches them, against ``outs`` (their held
+    outputs) repeated.  Returns the lanes that ran in launches whose
+    SigProp chains share a warp (ht_refine_packs)."""
+    import torch
+    from openjph_tpu_torch.gpu import block_refine_cuda as R
+    lib = R.load()
+    packed = 0
+    for (g, d, a), want in zip(k4_burst(groups, raw), outs):
+        got = kern(d.clone(), *a)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want.repeat(BURST, 1, 1)):
+            bad = int((got != want.repeat(BURST, 1, 1)).flatten(1).any(1)
+                      .sum())
+            raise AssertionError(f'{kname}: {bad} lanes of the burst-sized '
+                                 f'launch differ from the frame\'s output in '
+                                 f'group {g.w}x{g.h} ({label})')
+        n, h, w = d.shape
+        pk = lib.ht_refine_packs(n, w, h, R.PER_BLOCK)
+        if pk < 0:
+            raise RuntimeError(f'ht_refine_packs failed: CUDA error {-pk}')
+        packed += n if pk else 0
+    return packed
+
+
 def k4_vs_plain(data: bytes, dev, name: str, card_id: str, rows=None):
     """Both reader modes of the refinement kernel against their plain
     versions on every lane of a multi-pass frame, as coded and with the
-    gates forced (npasses 2 and 3 everywhere, causal flipped); the
-    cleanup and refinement kernels together against the C++ scalar
-    codeblock decoder on every live lane.  With ``rows``, times the
-    kernel and fills in its kernels-line rows."""
+    gates forced (npasses 2 and 3 everywhere, causal flipped), each also
+    on the lanes repeated as in a burst; the cleanup and refinement
+    kernels together against the C++ scalar codeblock decoder on every
+    live lane.  With ``rows`` (the 3-pass frame), times the kernel, fills
+    in its kernels-line rows and requires the burst-sized launches to
+    share warps between chains."""
     import numpy as np
     from openjph_tpu_torch import native
     from openjph_tpu_torch.gpu import block_refine_cuda as R
@@ -846,11 +948,21 @@ def k4_vs_plain(data: bytes, dev, name: str, card_id: str, rows=None):
         groups = modes[raw]
         if not groups:
             raise AssertionError(f'{name} has no multi-pass lane group')
-        plain_ms, outs = hold_k4(kname, kern, ref, groups, 'as coded')
-        for npasses in (2, 3):
-            hold_k4(kname, kern, ref,
-                    k4_gates(groups, raw, npasses=npasses, flip=True),
-                    f'npasses {npasses}, causal flipped')
+        # each gate setting held on the frame's lanes, then on those lanes
+        # repeated as in a burst: enough that a block's SigProp chains
+        # share a warp, which must change nothing
+        packed = {}
+        for label, gg in (('as coded', groups),) + tuple(
+                (f'npasses {k}, causal flipped',
+                 k4_gates(groups, raw, npasses=k, flip=True))
+                for k in (2, 3)):
+            ms_, o = hold_k4(kname, kern, ref, gg, label)
+            if label == 'as coded':
+                plain_ms, outs = ms_, o
+            packed[label] = hold_k4_burst(kname, kern, gg, o, raw, label)
+        if rows is not None and not all(packed.values()):
+            raise AssertionError(f'{kname}: no burst-sized launch of {name} '
+                                 f'shared a warp between chains: {packed}')
         # the cleanup and refinement kernels against the scalar decoder
         live = 0
         for (g, _, _), got in zip(groups, outs):
@@ -871,9 +983,12 @@ def k4_vs_plain(data: bytes, dev, name: str, card_id: str, rows=None):
         fields = {}
         if rows is not None:
             ms = k4_ms(kern, groups)
-            nbytes, ops = k4_bound(groups, raw)
+            nbytes, ops = k4_bound(groups, raw, outs)
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = ops / FP32_OPS_PER_S * 1e3
+            rt_bytes, rt_ops = k4_bound_round_trip(groups, raw)
+            bound_round_trip_ms = max(rt_bytes / HBM_BYTES_PER_S,
+                                      rt_ops / FP32_OPS_PER_S) * 1e3
             rows[kname] = {
                 'name': kname, 'route': 'cuda',
                 'source': 'openjph_tpu_torch/gpu/csrc/ht_refine_decode.cu',
@@ -882,6 +997,7 @@ def k4_vs_plain(data: bytes, dev, name: str, card_id: str, rows=None):
                 'plain_ms': plain_ms, 'bound_ms': max(bytes_ms, ops_ms),
                 'bound_by': 'bytes' if bytes_ms >= ops_ms else 'operations',
                 'library_ms': None, 'bit_exact': True,
+                'bound_round_trip_ms': bound_round_trip_ms,
             }
             # where the time goes, by the kernel's own gates: npasses 1
             # (launch and lane exit), h_lim 0 (the block staged and
@@ -891,35 +1007,53 @@ def k4_vs_plain(data: bytes, dev, name: str, card_id: str, rows=None):
                      for k, kw in (('npasses1', dict(npasses=1)),
                                    ('hlim0', dict(h_lim=0)),
                                    ('npasses2', dict(npasses=2)))}
-            sweep = {}
+            # (on the frame and on its lanes repeated as in a burst)
+            burst = k4_burst(groups, raw)
+            sweep, bsweep = {}, {}
             default = R.PER_BLOCK
             try:
                 for k in (1, 2, 4, 8):
                     R.PER_BLOCK = k
                     sweep[k] = k4_ms(kern, groups)
+                    bsweep[k] = k4_ms(kern, burst)
             finally:
                 R.PER_BLOCK = default
+            chain = k4_chain_groups(groups, raw)
+            sp_ms = split['npasses2'] - split['hlim0']
             emit('k4_split', frame=name, kernel=kname,
                  launch_ms=split['npasses1'],
                  stage_streams_writeback_ms=split['hlim0']
                  - split['npasses1'],
-                 sigprop_and_significance_ms=split['npasses2']
-                 - split['hlim0'],
-                 magref_ms=ms - split['npasses2'], all_ms=ms, card=card_id)
+                 sigprop_and_significance_ms=sp_ms,
+                 magref_ms=ms - split['npasses2'], all_ms=ms,
+                 longest_chain_groups=chain,
+                 sigprop_ns_per_group=sp_ms * 1e6 / max(chain, 1),
+                 card=card_id)
             fields = dict(kernel_ms=ms, plain_ms=plain_ms,
                           bytes_moved=nbytes, bound_ms=rows[kname]['bound_ms'],
+                          bytes_moved_round_trip=rt_bytes,
+                          bound_round_trip_ms=bound_round_trip_ms,
+                          warp_shared_bytes=R.load().ht_refine_warp_bytes(
+                              groups[0][0].w, groups[0][0].h),
                           codeblocks_per_block=R.PER_BLOCK,
-                          kernel_ms_by_codeblocks_per_block=sweep)
+                          kernel_ms_by_codeblocks_per_block=sweep,
+                          burst_ms_by_codeblocks_per_block=bsweep)
         emit('k4_vs_plain', frame=name, kernel=kname,
              groups=[(g.w, g.h, g.n_pad, list(g.rwords))
                      for g, _, _ in groups],
              gates=['as coded', 'npasses 2, causal flipped',
                     'npasses 3, causal flipped'],
              bit_exact=True, scalar_decoder_equal_lanes=live,
+             burst_sized_bit_exact=True, burst_packed_lanes=packed,
              card=card_id, **fields)
 
 
-def k4_synthetic(dev, card_id: str, lanes: int = 256):
+K4_SHAPES = ((64, 64), (128, 32), (32, 128), (36, 20), (13, 7), (62, 33),
+             (3, 64))
+
+
+def k4_synthetic(dev, card_id: str, lanes: int = 256, shapes=K4_SHAPES,
+                 seed: int = 4, packed: bool = False):
     """The refinement kernel against its plain version on seeded batches
     of 64x64, 128x32, 32x128 and 36x20 codeblocks, and of 13x7, 62x33 and
     3x64 ones (4x4 groups cut by the width and the height): random
@@ -927,17 +1061,23 @@ def k4_synthetic(dev, card_id: str, lanes: int = 256):
     causal flags and p (0 to 30, so shifts by p - 2 leave 0..31), and
     refinement segments of random bytes under 2,047, rich in 0xFF, 0x7F
     and bytes above 0x8F.  Both reader modes: the dense rows are the
-    plain raw readers' output on the card."""
+    plain raw readers' output on the card.  With ``packed``, each launch
+    must be one whose SigProp chains share a warp (ht_refine_packs)."""
     import types
     import numpy as np
     import torch
+    from openjph_tpu_torch.gpu import block_refine_cuda as R
     from openjph_tpu_torch.gpu.block_decode import to_i32_bits
     from openjph_tpu_torch.gpu.unstuff import raw_refine_to_dense
-    rng = np.random.RandomState(4)
+    rng = np.random.RandomState(seed)
     alpha = np.array([0xFF, 0x7F, 0x8F, 0x90, 0xFE, 0x00, 0x80, 0xFF],
                      np.uint8)
-    for w, h in ((64, 64), (128, 32), (32, 128), (36, 20), (13, 7),
-                 (62, 33), (3, 64)):
+    for w, h in shapes:
+        pk = R.load().ht_refine_packs(lanes, w, h, R.PER_BLOCK)
+        if pk != int(packed):
+            raise AssertionError(f'{lanes} lanes of {w}x{h}: '
+                                 f'ht_refine_packs gave {pk}, not '
+                                 f'{int(packed)}')
         p = rng.randint(0, 31, lanes)
         on = rng.rand(lanes, h, w) < rng.choice([0.02, 0.3, 0.9],
                                                 (lanes, 1, 1))
@@ -974,8 +1114,45 @@ def k4_synthetic(dev, card_id: str, lanes: int = 256):
             plain_ms, _ = hold_k4(kname, kern, ref, [(g, d, args[raw])],
                                   f'synthetic {w}x{h}')
             emit('k4_synthetic', block=[w, h], kernel=kname, lanes=lanes,
-                 bit_exact=True, max_len2=int(len2.max()),
-                 plain_ms=plain_ms, card=card_id)
+                 chains_share_warps=packed, bit_exact=True,
+                 max_len2=int(len2.max()), plain_ms=plain_ms, card=card_id)
+
+
+def against_refine(src: str, dev, card_id: str):
+    """``--against-refine SRC``: another source of the refinement kernel
+    with the same decode entries (launched with one codeblock per block;
+    handed the column table only where it has the table entry) and this
+    checkout's, on the 3-pass gray frame in both modes: equal outputs on
+    every lane, then their times in turns (against, this, this,
+    against) and SigProp's groups on the longest chain."""
+    import torch
+    from openjph_tpu_torch.gpu import block_refine_cuda as R
+    R.load()
+    lib = R.build(os.path.abspath(src), 'ht_refine_decode_against')
+    _, modes = k4_groups(open(GRAY3, 'rb').read(), dev)
+    for kname, kern, _, raw in k4_modes():
+        groups = modes[raw]
+        other = other_k4(lib, raw, 1)
+        for g, d, a in groups:
+            got, want = kern(d.clone(), *a), other(d.clone(), *a)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f'{kname}: {src} and this checkout '
+                                     f'differ in group {g.w}x{g.h}')
+        times = {'against': [], 'this': []}
+        for who in ('against', 'this', 'this', 'against'):
+            times[who].append(k4_ms(other if who == 'against' else kern,
+                                    groups))
+        chain = k4_chain_groups(groups, raw)
+        old = statistics.mean(times['against'])
+        new = statistics.mean(times['this'])
+        emit('against_refine', kernel=kname, source=src, equal=True,
+             lanes=sum(d.shape[0] for _, d, _ in groups),
+             against_ms=times['against'], this_ms=times['this'],
+             speedup=old / new, longest_chain_groups=chain,
+             against_ns_per_group=old * 1e6 / chain,
+             this_ns_per_group=new * 1e6 / chain,
+             this_codeblocks_per_block=R.PER_BLOCK, card=card_id)
 
 
 def main() -> int:
@@ -989,6 +1166,9 @@ def main() -> int:
     ap.add_argument('--against-encode', metavar='SRC',
                     help='only time the encode kernel built from SRC (same '
                          'C interface) against this checkout\'s')
+    ap.add_argument('--against-refine', metavar='SRC',
+                    help='only time the refinement kernel built from SRC '
+                         '(same decode entries) against this checkout\'s')
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; nothing was run',
@@ -1008,6 +1188,9 @@ def main() -> int:
         return 0
     if opts.against_encode:
         against_encode(opts.against_encode, dev, card_id)
+        return 0
+    if opts.against_refine:
+        against_refine(opts.against_refine, dev, card_id)
         return 0
     build_s, per_lib = build_all()
     emit('setup', card=card_id, torch=torch.__version__,
@@ -1156,6 +1339,12 @@ def main() -> int:
     k4_vs_plain(gray3, dev, 'gray_2048x1080_rev_p3', card_id, rows=kernels)
     k4_vs_plain(causal2, dev, 'gray_512x256_rev_p2_causal', card_id)
     k4_synthetic(dev, card_id)
+    # ... and on launches large enough (over 16 codeblocks an SM) that a
+    # block's SigProp chains share its first warp: odd shapes, forced
+    # gates and chains of every length side by side in that warp
+    k4_synthetic(dev, card_id, lanes=9 * 256, shapes=((64, 64), (62, 33),
+                                                      (13, 7)),
+                 seed=5, packed=True)
 
     # references of the multi-pass streams: the port's own CPU decode
     # (plain versions of every stage); it launches no kernel

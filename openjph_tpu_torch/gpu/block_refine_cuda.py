@@ -10,16 +10,21 @@
 A CPU tensor takes the plain PyTorch version (block_refine.py, plus
 unstuff.py for the raw readers).  A CUDA tensor launches the kernel or
 raises: there is no fallback.  The kernel refines one codeblock per warp,
-``PER_BLOCK`` codeblocks per CUDA block, writing ``dec`` in place.  It is
-compiled with nvcc for sm_90a at first use into build/openjph_tpu_torch/
-and bound with ctypes; it runs on the current CUDA stream and allocates
-nothing.  ``LAUNCHES`` counts the kernel launches of each entry point.
+``PER_BLOCK`` codeblocks per CUDA block, writing ``dec`` in place; its
+SigProp chain steps a group's columns through a table built here
+(:func:`spp_column_table`) and handed to each library once per device,
+and on a launch of many codeblocks a block's chains share one warp.
+It is compiled with nvcc for sm_90a at first use into
+build/openjph_tpu_torch/ and bound with ctypes; it runs on the current
+CUDA stream and allocates nothing.  ``LAUNCHES`` counts the kernel
+launches of each entry point.
 """
 from __future__ import annotations
 
 import ctypes
 import os
 
+import numpy as np
 import torch
 
 from . import block_refine as plain
@@ -30,19 +35,29 @@ from .unstuff import raw_refine_to_dense
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'csrc',
                    'ht_refine_decode.cu')
 LAUNCHES = {'ht_refine_decode_dense': 0, 'ht_refine_decode_raw': 0}
-# codeblocks (warps) per CUDA block.  chip_smoke.py's sweep over 1, 2, 4
-# and 8 on the 3-pass 2048x1080 gray frame's 768 lanes put 1 first in both
-# reader modes on an H100 80GB HBM3 (700 W), 3% ahead of 4; PERF.md has
-# the times.  A warp's ~19 KB of shared memory then sets the warps an SM
-# holds, not the block size.
-PER_BLOCK = 1
+# codeblocks (warps) per CUDA block.  chip_smoke.py sweeps 1, 2, 4 and 8
+# on the 3-pass 2048x1080 gray frame's 768 lanes and on those lanes
+# repeated as in an 8-frame burst: on an H100 80GB HBM3 (700 W) 4 came
+# within 1% of the best on the frame and first on the burst, where a
+# launch of that size puts a block's four SigProp chains on one warp
+# (8 some 10% and 1 or 2 some 30% behind); PERF.md has the times.
+PER_BLOCK = 4
+
+# SigProp's column table (csrc/ht_refine_decode.cu kTableEntries, of two
+# bytes each)
+TABLE_ENTRIES = 4096
+TABLE_BYTES = 2 * TABLE_ENTRIES
 
 _lib = None
+# (library path, device index) pairs whose table is set
+_TABLES_SET = set()
 
 
 def build(src: str = SRC, name: str = 'ht_refine_decode'):
     """Compile ``src``, a source with this kernel's C interface, with
-    nvcc for sm_90a and load it with its entry points bound."""
+    nvcc for sm_90a and load it with its entry points bound.  An older
+    source without the table entry (``ht_refine_set_tables``) loads
+    too."""
     nvcc = nvcc_path()
     lib = load_library(
         name, [src],
@@ -50,6 +65,13 @@ def build(src: str = SRC, name: str = 'ht_refine_decode'):
                      '-std=c++17', '-O3', '-shared', '-Xcompiler', '-fPIC',
                      '-o', out, src])
     vp, ci = ctypes.c_void_p, ctypes.c_int
+    if hasattr(lib, 'ht_refine_set_tables'):
+        lib.ht_refine_set_tables.restype = ci
+        lib.ht_refine_set_tables.argtypes = [vp, ci]
+        lib.ht_refine_warp_bytes.restype = ci
+        lib.ht_refine_warp_bytes.argtypes = [ci, ci]
+        lib.ht_refine_packs.restype = ci
+        lib.ht_refine_packs.argtypes = [ci, ci, ci, ci]
     lib.ht_refine_decode_dense.restype = ci
     lib.ht_refine_decode_dense.argtypes = (
         [vp, vp, vp, ci, ci, vp, vp, vp, vp, ci, ci, ci, ci, vp])
@@ -66,6 +88,47 @@ def load():
     if _lib is None:
         _lib = build()
     return _lib
+
+
+def spp_column_table() -> np.ndarray:
+    """SigProp's step over one column of a 4x4 group, as the kernel's
+    uint16 [4096] table.  Index: the next four stream bits (bits 0-3, the
+    first at bit 0) | the column's candidates (bits 4-7, row k at bit k) |
+    its rows not yet significant (bits 8-11).  The rows are visited top
+    down; a row is a candidate when its bit is set or the row above just
+    turned significant and the row is not yet significant; a candidate
+    reads one bit and turns significant on a 1.  Entry: the bits read
+    (0-4) | the new significance spread to rows k-1..k+1 << 5 (the next
+    column's candidates, placed as in the entry's byte offset 2 * index)
+    | the new significance << 9 | its popcount (the sign bits) << 13."""
+    table = np.zeros(TABLE_ENTRIES, np.uint16)
+    for i in range(TABLE_ENTRIES):
+        win, cand, inv = i & 0xF, (i >> 4) & 0xF, i >> 8
+        sig = read = 0
+        for row in range(4):
+            spread = row > 0 and (sig >> (row - 1)) & 1 and (inv >> row) & 1
+            if (cand >> row) & 1 or spread:
+                sig |= ((win >> read) & 1) << row
+                read += 1
+        spread = (sig | sig << 1 | sig >> 1) & 0xF
+        table[i] = (read | spread << 5 | sig << 9
+                    | bin(sig).count('1') << 13)
+    return table
+
+
+def set_tables(lib, device) -> None:
+    """Hand ``lib`` the column table on ``device`` (once per pair); a
+    source without the entry needs none."""
+    fn = getattr(lib, 'ht_refine_set_tables', None)
+    key = (lib._name, device.index)
+    if fn is None or key in _TABLES_SET:
+        return
+    table = spp_column_table()
+    with torch.cuda.device(device):
+        rc = fn(table.ctypes.data, table.nbytes)
+    if rc != 0:
+        raise RuntimeError(f'ht_refine_set_tables failed: CUDA error {rc}')
+    _TABLES_SET.add(key)
 
 
 def _check_lanes(dec, width: int, height: int, **lanes):
@@ -111,6 +174,7 @@ def launch_dense(lib, per_block: int, dec, spp, mrp, p, npasses, h_lim,
                  causal, width: int, height: int):
     """One launch of ``lib``'s dense entry on checked CUDA tensors."""
     dev = dec.device
+    set_tables(lib, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.ht_refine_decode_dense(
@@ -166,6 +230,7 @@ def launch_raw(lib, per_block: int, dec, blob, roff, len2, p, npasses,
                h_lim, causal, width: int, height: int):
     """One launch of ``lib``'s raw entry on checked CUDA tensors."""
     dev = dec.device
+    set_tables(lib, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.ht_refine_decode_raw(

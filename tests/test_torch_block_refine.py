@@ -235,3 +235,285 @@ def test_cpu_refine_launches_no_kernel():
     R.refine_raw(dec, torch.zeros(64, dtype=torch.uint8), z, z, full + 5,
                  full, full + 5, z, w, h)
     assert sum(R.LAUNCHES.values()) == 0
+
+
+# ---- the kernel's algorithm, modelled lane by lane on the CPU ----
+#
+# csrc/ht_refine_decode.cu runs SigProp as a context word a group (phase
+# D1, all lanes), a chain of column steps through spp_column_table on one
+# lane (D2), then MagRef's reads and SigProp's sign reads, and the stores
+# of both, a step of two groups a lane (E).
+# _kernel_model repeats those phases for one lane, in the kernel's order
+# and with its words, from the table alone; the tests below hold it to
+# the plain refine_core and to the JAX package's.
+
+_M32 = 0xFFFFFFFF
+
+
+def _vspread(x):
+    return ((x & 0x77777777) << 1) | ((x & 0xEEEEEEEE) >> 1)
+
+
+def _shl(v, n):
+    return (v << n) & _M32 if 0 <= n < 32 else 0
+
+
+def _kernel_model(dec, spp, mrp, p, npasses, hl, causal, w, h, table):
+    """One lane through phases A, D1, D2 and E: dec uint32 [h, w], spp /
+    mrp uint32 word rows (zero past their end), the gates as ints;
+    returns the refined uint32 [h, w]."""
+    out = dec.copy()
+    if npasses < 2:
+        return out
+    n_sy, n_gx = (h + 3) >> 2, (w + 3) >> 2
+    gs = n_gx + 1
+
+    def word(a, i):
+        return int(a[i]) if i < len(a) else 0
+
+    def bits32(a, off):
+        k = off >> 5
+        return ((word(a, k) | word(a, k + 1) << 32) >> (off & 31)) & _M32
+
+    # A: cleanup significance, bit 4*col + row, rows below min(hl, h)
+    sig = [[0] * gs for _ in range(n_sy + 1)]
+    for y, x in zip(*np.nonzero(dec[:max(0, min(hl, h))])):
+        sig[y >> 2][x >> 2] |= 1 << (((x & 3) << 2) | (y & 3))
+    nst = 0 if hl <= 0 else min(n_sy, (hl + 3) >> 2)
+    zero = [0] * gs
+    # D1: each group's fixed context, candidates | not significant << 16
+    ctx = [[0] * gs for _ in range(n_sy)]
+    for sy in range(nst):
+        c, n, a = sig[sy], sig[sy + 1], sig[sy - 1] if sy else zero
+        for gx in range(n_gx):
+            cs = c[gx] | c[gx + 1] << 16
+            ns = n[gx] | n[gx + 1] << 16
+            ps = a[gx] | a[gx + 1] << 16
+            u = ((ps & 0x88888888) >> 3) | (
+                0 if causal else (ns & 0x11111111) << 3)
+            m = cs | _vspread(cs) | u
+            m = (m | m << 4 | m >> 4) & _M32
+            if gx:
+                lu = ((a[gx - 1] & 0x8888) >> 3) | (
+                    0 if causal else (n[gx - 1] & 0x1111) << 3)
+                m |= ((c[gx - 1] | _vspread(c[gx - 1]) | lu) & 0xF000) >> 12
+            rl = hl - 4 * sy
+            pattern = {1: 0x1111, 2: 0x3333, 3: 0x7777}.get(min(rl, 4),
+                                                             0xFFFF)
+            pattern >>= 4 * max(4 * gx + 4 - w, 0)
+            inv = ~cs & pattern
+            ctx[sy][gx] = (m & inv) | inv << 16
+    # D2: the chain; the window doubled, a funnel shift of the words
+    # around bit off + 31 = 32 * j + u, the word after them read ahead
+    res = [[0] * gs for _ in range(n_sy)]
+    lo, hi, nxt = 0, word(spp, 0), word(spp, 1)
+    j, u, off = 0, 31, 0
+    for sy in range(nst):
+        e = udl = 0
+        for gx in range(n_gx):
+            c = ctx[sy][gx]
+            a_lo, a_hi = (res[sy - 1][gx], res[sy - 1][gx + 1]) if sy \
+                else (0, 0)
+            ud = (((a_lo & 0xFFFF) | a_hi << 16) & 0x88888888) >> 3
+            inv = c >> 16
+            stat = (c | ud | ud << 4 | ud >> 4 | udl) & inv
+            nsig = cnt = used = 0
+            if stat | ((e >> 5) & inv & 0xF):
+                v = ((hi << 32 | lo) >> u) & _M32
+                for col in range(4):
+                    ic = (inv >> 4 * col) & 0xF
+                    fix = ((stat >> 4 * col) & 0xF) << 5 | ic << 9
+                    # byte offset 2 * index into the uint16 table
+                    e = int(table[((v & 0x1E) | (e & ic << 5) | fix) >> 1])
+                    v >>= e & 0x1F
+                    cnt += e & 0xF
+                    used += e >> 13
+                    nsig |= ((e >> 9) & 0xF) << 4 * col
+            else:
+                e = 0
+            used += cnt
+            res[sy][gx] = nsig | (off + cnt) << 16
+            off += used
+            t = u + used
+            u = t & 31
+            if t >= 32:
+                lo, hi, j = hi, nxt, j + 1
+            nxt = word(spp, j + 1)
+            udl = (ud & 0xF000) >> 12
+    # E: a step (two groups of a stripe) at a time: its MagRef bits at the
+    # offset the steps before it read, each group's sign bits at its
+    # stored offset; a changed sample's bit is the one its rank among the
+    # set bits names
+    val16, half = _shl(3, p - 2), _shl(1, p - 2)
+    both, base = _shl(1, p - 1) | half, 0
+
+    def rank(m, b):
+        return bin(m & ((1 << b) - 1)).count('1')
+
+    for sy in range(nst):
+        for at in range(0, n_gx, 2):
+            msig = sig[sy][at] | sig[sy][at + 1] << 16 if npasses >= 3 else 0
+            mbits = bits32(mrp, base)
+            base += bin(msig).count('1')
+            r0, r1 = res[sy][at], res[sy][at + 1]
+            n0, n1 = r0 & 0xFFFF, r1 & 0xFFFF
+            sb = (bits32(spp, r0 >> 16), bits32(spp, r1 >> 16))
+            for b in range(32):
+                y, x = 4 * sy + (b & 3), 4 * at + (b >> 2)
+                if y >= h:
+                    continue
+                if (msig >> b) & 1:
+                    bit = (mbits >> rank(msig, b)) & 1
+                    out[y, x] ^= half if bit else both
+                elif ((n0 | n1 << 16) >> b) & 1:
+                    g, k = (0, rank(n0, b)) if b < 16 else (1, rank(n1, b - 16))
+                    val = ((sb[g] >> k) & 1) << 31 | val16
+                    if val:
+                        out[y, x] = val
+    return out
+
+
+def _model_lanes(seed, w, h, n):
+    """n seeded lanes as the card's synthetic batches make them: any
+    32-bit cleanup samples at three densities, cut h_lim, passes 1-3,
+    both causal modes, p 0-30, stuffing-rich segments; their dense
+    streams from the plain raw readers, long enough that no read passes
+    their end.  Returns (dec, spp, mrp, gates, (blob, roff, len2))."""
+    rng = np.random.RandomState(seed)
+    on = rng.rand(n, h, w) < rng.choice([0.02, 0.3, 0.9], (n, 1, 1))
+    vals = rng.randint(1, 1 << 32, (n, h, w), dtype=np.uint64)
+    dec = np.where(on, vals, 0).astype(np.uint32)
+    h_lim = rng.randint(0, h + 1, n)
+    h_lim[:n // 2] = h
+    gates = dict(p=rng.randint(0, 31, n), npasses=rng.randint(1, 4, n),
+                 h_lim=h_lim, causal=np.arange(n) % 2)
+    gates['npasses'][:2] = (2, 3)
+    # two of the readers' edge cases, then random segments; every third
+    # lane's bytes thinned to about one bit in eight, so that few samples
+    # turn significant and a single context term decides a candidate
+    lanes = _stuffing_rich_lanes(seed, n=n + 7, maxlen=2 * w * h // 8)[7:]
+    for i in range(2, n, 3):
+        k = len(lanes[i])
+        lanes[i] = list(np.array(lanes[i]) & rng.randint(0, 256, k)
+                        & rng.randint(0, 256, k) & rng.randint(0, 256, k))
+    len2 = np.array([len(s) for s in lanes], np.int64)
+    blob = np.zeros(64 + int(len2.sum()) + 64, np.uint8)
+    roff, at = [], 64
+    for s in lanes:
+        blob[at:at + len(s)] = s
+        roff.append(at)
+        at += len(s)
+    area = 16 * ((h + 3) >> 2) * ((w + 3) >> 2)
+    nw = max(int(len2.max()) * 8, 2 * area) // 32 + 8
+    roff = np.array(roff, np.int64)
+    spp, mrp = raw_refine_to_dense(torch.from_numpy(blob),
+                                   torch.from_numpy(roff),
+                                   torch.from_numpy(len2), nw)
+    return (dec, spp.numpy().astype(np.uint32), mrp.numpy().astype(np.uint32),
+            gates, (blob, roff, len2))
+
+
+def _model_all(dec, spp, mrp, gates, w, h):
+    table = R.spp_column_table()
+    return np.stack([
+        _kernel_model(dec[i], spp[i], mrp[i], int(gates['p'][i]),
+                      int(gates['npasses'][i]), int(gates['h_lim'][i]),
+                      bool(gates['causal'][i]), w, h, table)
+        for i in range(dec.shape[0])])
+
+
+def test_spp_column_table_exhaustive():
+    """Every entry against the candidate loop of the plain SigProp
+    restricted to one column: candidates lowest first, a decision on a 1
+    spreading to the rest of the column's not-yet-significant rows; the
+    spread onto the next column and the count of sign bits."""
+    table = R.spp_column_table()
+    assert table.dtype == np.uint16 and table.nbytes == R.TABLE_BYTES
+    col_spread = [s & 0xF for s in pbr.SPREAD_POS[:4]]
+    next_spread = [(s >> 4) & 0xF for s in pbr.SPREAD_POS[:4]]
+    for i in range(R.TABLE_ENTRIES):
+        cwd, new_sig, inv = i & 0xF, (i >> 4) & 0xF, i >> 8
+        cnt = nxt = 0
+        for pos in range(4):
+            take = (new_sig >> pos) & 1
+            new_sig &= ~(1 << pos)
+            if take and cwd & 1:
+                new_sig |= (col_spread[pos] & inv) | 1 << pos
+                nxt |= next_spread[pos]
+            if take:
+                cwd >>= 1
+                cnt += 1
+        want = (cnt | nxt << 5 | new_sig << 9
+                | bin(new_sig).count('1') << 13)
+        assert int(table[i]) == want, f'entry {i:#x}'
+
+
+@pytest.mark.parametrize('w,h', [(64, 64), (36, 20), (13, 7), (62, 33),
+                                 (3, 64)])
+def test_kernel_model_matches_plain(w, h):
+    n = 9
+    dec, spp, mrp, gates, _ = _model_lanes(30 + w, w, h, n)
+    want = R.refine(_t(dec), _t(spp), _t(mrp),
+                    *(_t(gates[k].astype(np.int32))
+                      for k in ('p', 'npasses', 'h_lim', 'causal')), w, h)
+    got = _model_all(dec, spp, mrp, gates, w, h)
+    np.testing.assert_array_equal(got, want.numpy().view(np.uint32))
+    assert not np.array_equal(got, dec)
+
+
+@pytest.mark.parametrize('w,h', [(16, 16), (36, 20)])
+def test_kernel_model_matches_jax(w, h):
+    import jax
+    from openjph_tpu.tpu.block_refine import refine_core as jax_refine
+    dec, spp, mrp, gates, _ = _model_lanes(50 + w, w, h, 4)
+    want = jax.jit(jax_refine, static_argnums=(7, 8))(
+        dec, spp, mrp, gates['p'].astype(np.int32),
+        gates['npasses'].astype(np.int32), gates['h_lim'].astype(np.int32),
+        gates['causal'].astype(bool), w, h)
+    got = _model_all(dec, spp, mrp, gates, w, h)
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('packed', [False, True])
+def test_cuda_kernel_matches_plain(packed):
+    """Both reader modes of the kernel against their plain versions on
+    the model's seeded lanes, with the table entry and the shared-memory
+    size of a codeblock; ``packed``: the lanes repeated past 16 an SM, so
+    that a block's SigProp chains share its first warp."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    dev = torch.device('cuda')
+    lib = R.load()
+    # a codeblock's shared memory: the chain's slot, the significance
+    # words, a context and a result word a group and the two streams
+    assert lib.ht_refine_warp_bytes(64, 64) == 5216
+    assert lib.ht_refine_warp_bytes(13, 7) % 16 == 0
+    table = R.spp_column_table()
+    assert lib.ht_refine_set_tables(table.ctypes.data, table.nbytes) == 0
+    assert lib.ht_refine_set_tables(table.ctypes.data, 64) != 0
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    R.reset_launches()
+    for w, h in ((64, 64), (36, 20), (13, 7), (3, 64)):
+        dec, spp, mrp, gates, (blob, roff, len2) = _model_lanes(30 + w, w,
+                                                                h, 6)
+        reps = (16 * sms) // dec.shape[0] + 1 if packed else 1
+        assert lib.ht_refine_packs(reps * dec.shape[0], w, h,
+                                   R.PER_BLOCK) == int(packed)
+        g = [_t(gates[k].astype(np.int32))
+             for k in ('p', 'npasses', 'h_lim', 'causal')]
+        want = R.refine(_t(dec), _t(spp), _t(mrp), *g, w, h)
+        want = want.repeat(reps, 1, 1)
+        lanes = [_t(a).repeat(reps, *([1] * (a.ndim - 1))).to(dev)
+                 for a in (dec, spp, mrp, roff.astype(np.int32),
+                           len2.astype(np.int32))]
+        g = [t.repeat(reps).to(dev) for t in g]
+        got = R.refine(lanes[0].clone(), *lanes[1:3], *g, w, h)
+        got_raw = R.refine_raw(lanes[0],
+                               torch.from_numpy(blob).to(dev), *lanes[3:],
+                               *g, w, h)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+        assert torch.equal(got_raw.cpu(), want)
+    assert R.LAUNCHES == {'ht_refine_decode_dense': 4,
+                          'ht_refine_decode_raw': 4}
