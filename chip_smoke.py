@@ -14,9 +14,15 @@ shapes, odd ones among them), also on lanes enough that a block's SigProp
 chains share one warp, split by its gates, the cleanup and
 refinement kernels together against the C++ scalar codeblock decoder,
 and both streams decoded end to end against the port's CPU decode (both
-runner modes, an 8-frame burst).  It times each stage (device stages
-with CUDA events, host stages with the host clock), and prints one JSON
-line per result.
+runner modes, an 8-frame burst); damaged streams: the gray and 3-pass
+frames cut at 1/4, 1/2 and 3/4 and with a seeded 8-byte flip that strict
+decode rejects, decoded with resilient=True in both runner modes against
+the port's CPU decode (the same lanes zeroed), and the causal stream's
+cuts against the committed host decode; and the gray frame encoded with
+a Part-2 DFS structure (HORZ, VERT, three BIDIR levels) against the
+port's CPU encode, decoded back bit-exact.  It times each stage (device
+stages with CUDA events, host stages with the host clock), and prints one
+JSON line per result.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --against OTHER.cu          # another build of
@@ -49,6 +55,9 @@ RGB = os.path.join(DATA, 'rgb_2048x1080_97.j2c')
 TESTDATA = os.path.join(ROOT, 'openjph_tpu_torch', 'testdata')
 GRAY3 = os.path.join(TESTDATA, 'gray_2048x1080_rev_p3.j2c')
 CAUSAL2 = os.path.join(TESTDATA, 'gray_512x256_rev_p2_causal.j2c')
+# the host decoder's resilient decode of three cuts of CAUSAL2
+CAUSAL2_REF = os.path.join(TESTDATA,
+                           'gray_512x256_rev_p2_causal_resilient.npz')
 BURST = 8
 NOISE = (1080, 2048)  # the seeded noise frame of the block-shape phase
 # the seeded 12-bit frame of the encode phases: its odd sizes give edge
@@ -438,11 +447,11 @@ def against(src: str, dev, card_id: str):
              error=str(e), card=card_id)
 
 
-def decode_frames(datas, dev, raw: bool = True):
+def decode_frames(datas, dev, raw: bool = True, resilient: bool = False):
     """Bytes -> frames in device memory through the fused decode, with
     per-stage times; Tier-1 is split into the cleanup kernel, the
     refinement kernel (multi-pass groups only) and the masking of dead
-    lanes.  Returns (outputs, times in ms)."""
+    and broken lanes.  Returns (outputs, times in ms)."""
     import torch
     from openjph_tpu_torch.gpu.pipeline import (GpuDecoder, _build_plan,
                                                 _make_runner, _pack_dense,
@@ -450,11 +459,8 @@ def decode_frames(datas, dev, raw: bool = True):
     t0 = time.perf_counter()
     pairs = []
     for d in datas:
-        dec = GpuDecoder(d, device=dev, raw=raw)
-        plan = _build_plan(dec)
-        if plan is None:
-            raise AssertionError('stream left the fused path')
-        pairs.append((dec, plan))
+        dec = GpuDecoder(d, device=dev, raw=raw, resilient=resilient)
+        pairs.append((dec, _build_plan(dec)))
     t1 = time.perf_counter()
     args = _pack_device(pairs) if raw else _pack_dense(pairs)
     t2 = time.perf_counter()
@@ -474,7 +480,7 @@ def decode_frames(datas, dev, raw: bool = True):
     ev[5].record()
     torch.cuda.synchronize()
     t3 = time.perf_counter()
-    if bool(torch.cat(errs).any()):
+    if not resilient and bool(torch.cat(errs).any()):
         raise AssertionError('a lane of a valid stream was flagged')
     times = {'host_t2_plan': (t1 - t0) * 1e3, 'pack': (t2 - t1) * 1e3,
              'upload': ev[0].elapsed_time(ev[1]),
@@ -669,10 +675,11 @@ def against_encode(src: str, dev, card_id: str):
          this_codeblocks_per_block=E.PER_BLOCK, card=card_id)
 
 
-def encode_frames(frames, dev):
+def encode_frames(frames, dev, make=None):
     """Gray frames in host memory -> lossless .j2c streams through the
-    fused encode, with per-stage times.  Returns (streams, times in
-    ms)."""
+    fused encode, with per-stage times; ``make(shape, dev)`` gives the
+    (encoder, tile geometry), by default 5/3 with openjph_tpu.encode's
+    defaults.  Returns (streams, times in ms)."""
     import numpy as np
     import torch
     from openjph_tpu_torch.gpu.encode_pipeline import (_empty_coded,
@@ -682,7 +689,7 @@ def encode_frames(frames, dev):
                                                        _tile_packets)
     F = len(frames)
     t0 = time.perf_counter()
-    enc, geom = encoder(frames[0].shape, 1, dev, reversible=True)
+    enc, geom = (make or dfs_free)(frames[0].shape, dev)
     plan = enc._build_enc_plan(geom)
     runner = _make_enc_runner(plan, F, dev)
     t1 = time.perf_counter()
@@ -714,6 +721,34 @@ def encode_frames(frames, dev):
              'host_stuffing': (t5 - t4) * 1e3,
              't2_assemble': (t6 - t5) * 1e3, 'total': (t6 - t0) * 1e3}
     return streams, times
+
+
+def dfs_free(shape, dev):
+    return encoder(shape, 1, dev, reversible=True)
+
+
+# the DFS phase's decomposition structure, finest level first: a
+# horizontal-only level, a vertical-only one, then three in both ways
+DFS_TYPES = ('HORZ_DWT', 'VERT_DWT', 'BIDIR_DWT', 'BIDIR_DWT', 'BIDIR_DWT')
+
+
+def dfs_encoder(shape, dev):
+    """(GpuEncoder, tile geometry) of 8-bit gray frames of ``shape``,
+    lossless 5/3, 64x64 codeblocks, with DFS_TYPES signalled by a COC
+    (tests/test_torch_dfs_encode.py builds its encoders so)."""
+    from openjph_tpu_torch.core import markers as mk
+    from openjph_tpu_torch.core.geometry import build_tile, build_tile_grid
+    from openjph_tpu_torch.gpu.encode_pipeline import GpuEncoder
+    siz = mk.Siz()
+    siz.xsiz, siz.ysiz = shape[1], shape[0]
+    siz.comps = [mk.CompInfo(8, False, 1, 1)]
+    nd = len(DFS_TYPES)
+    cod = mk.Cod(num_decomps=nd, wavelet_kern=mk.DWT_REV53)
+    coc = mk.Cod(num_decomps=nd, wavelet_kern=mk.DWT_REV53, comp_idx=0,
+                 dfs_idx=0)
+    dfs = mk.Dfs.from_types(0, [getattr(mk.Dfs, t) for t in DFS_TYPES])
+    enc = GpuEncoder(siz, cod, cocs={0: coc}, dfs_list=[dfs], device=dev)
+    return enc, build_tile(enc.hdr, 0, build_tile_grid(enc.siz)[0])
 
 
 def from_sot(stream: bytes) -> bytes:
@@ -1155,6 +1190,123 @@ def against_refine(src: str, dev, card_id: str):
              this_codeblocks_per_block=R.PER_BLOCK, card=card_id)
 
 
+def damaged_copies(data: bytes, dev, seed: int, tries: int = 64):
+    """[(label, bytes)]: ``data`` cut at 1/4, 1/2 and 3/4 of its length,
+    and one seeded flip of 8 bytes (^ 0xA5) in its last quarter, the
+    first of ``tries`` seeded offsets whose strict decode on the card
+    raises ValueError."""
+    import numpy as np
+    from openjph_tpu_torch.gpu.pipeline import decode_gpu
+    n = len(data)
+    out = [(f'cut_{k}_of_4', data[:n * k // 4]) for k in (1, 2, 3)]
+    rng = np.random.RandomState(seed)
+    for _ in range(tries):
+        off = int(rng.randint(n * 3 // 4, n - 8))
+        bad = bytearray(data)
+        for j in range(8):
+            bad[off + j] ^= 0xA5
+        try:
+            decode_gpu(bytes(bad), device=dev)
+        except ValueError:
+            out.append((f'flip_at_{off}', bytes(bad)))
+            return out
+    raise AssertionError(f'none of {tries} seeded flips was detected')
+
+
+def resilient_phase(streams, dev, kernels, K, R):
+    """Damaged copies of ``streams`` ((name, bytes, seed)) decoded on the
+    card under resilience in both runner modes, each equal to the port's
+    CPU decode of the same bytes and zeroing the same lanes; cuts of the
+    2-pass causal stream against the committed host decode.  Every
+    launch between the counts' reset and their reading is this phase's
+    own; they are added to ``kernels``."""
+    import numpy as np
+    from openjph_tpu_torch.gpu.pipeline import GpuDecoder
+    cases = []
+    for name, data, seed in streams:
+        for label, part in damaged_copies(data, dev, seed):
+            t0 = time.perf_counter()
+            cpu = GpuDecoder(part, device='cpu', raw=False, resilient=True)
+            ref = cpu.decode()
+            cases.append((name, label, part, ref, cpu.zeroed,
+                          time.perf_counter() - t0))
+    causal = open(CAUSAL2, 'rb').read()
+    with np.load(CAUSAL2_REF) as z:
+        causal_ref = {k: z[k] for k in z.files}
+    K.reset_launches()
+    R.reset_launches()
+    for name, label, part, ref, zeroed, cpu_s in cases:
+        for raw in (True, False):
+            d = GpuDecoder(part, device=dev, raw=raw, resilient=True)
+            out = d.decode()
+            if len(out) != len(ref) or not all(
+                    np.array_equal(a, b) for a, b in zip(out, ref)):
+                raise AssertionError(f'{name} {label} differs from the CPU '
+                                     f'decode (raw={raw})')
+            if d.zeroed != zeroed:
+                raise AssertionError(f'{name} {label}: the card zeroed '
+                                     f'{d.zeroed} lanes, the CPU {zeroed}')
+            if label.startswith('flip') and d.zeroed[1] == 0:
+                raise AssertionError(f'{name} {label}: no lane flagged')
+            emit('resilient', stream=name, case=label, raw=raw,
+                 bytes=len(part), zeroed_by_plan=d.zeroed[0],
+                 zeroed_by_kernel_flags=d.zeroed[1], equal_to_cpu=True,
+                 shape=list(out[0].shape), cpu_reference_s=cpu_s)
+    for k in (1, 2, 3):
+        part = causal[:len(causal) * k // 4]
+        want = causal_ref[f'cut_{len(part)}']
+        for raw in (True, False):
+            d = GpuDecoder(part, device=dev, raw=raw, resilient=True)
+            out = d.decode()
+            if len(out) != 1 or not np.array_equal(out[0], want):
+                raise AssertionError(f'causal cut {k}/4 differs from the '
+                                     f'committed reference (raw={raw})')
+            emit('resilient', stream='gray_512x256_rev_p2_causal',
+                 case=f'cut_{k}_of_4', raw=raw, bytes=len(part),
+                 zeroed_by_plan=d.zeroed[0],
+                 zeroed_by_kernel_flags=d.zeroed[1],
+                 equal_to_committed_reference=True)
+    launches = {**K.LAUNCHES, **R.LAUNCHES}
+    for k, v in launches.items():
+        if v == 0:
+            raise AssertionError(f'{k} was not launched on the resilient '
+                                 f'decode path')
+        kernels[k]['launches'] += v
+    emit('resilient_path_launches', **launches)
+
+
+def dfs_phase(gray_ref, dev, kernels, K, E):
+    """The gray frame encoded on the card with DFS_TYPES, byte-equal to
+    the port's CPU encode and decoding on the card to the frame.  Its
+    launches are added to ``kernels``."""
+    import numpy as np
+    from openjph_tpu_torch.gpu.pipeline import decode_gpu
+    t0 = time.perf_counter()
+    ref = dfs_encoder(gray_ref.shape, 'cpu')[0].encode([gray_ref])
+    cpu_s = time.perf_counter() - t0
+    K.reset_launches()
+    E.reset_launches()
+    enc, geom = dfs_encoder(gray_ref.shape, dev)
+    got = enc.encode([gray_ref])
+    if got != ref:
+        raise AssertionError('the DFS encode differs from the CPU encode')
+    back = decode_gpu(got, device=dev)
+    if len(back) != 1 or not np.array_equal(back[0], gray_ref):
+        raise AssertionError('the DFS encode does not decode to the frame')
+    launches = {**E.LAUNCHES, **K.LAUNCHES}
+    for k in ('ht_cleanup_encode', 'ht_cleanup_decode_raw'):
+        if launches[k] == 0:
+            raise AssertionError(f'{k} was not launched on the DFS path')
+    for k, v in launches.items():
+        kernels[k]['launches'] += v
+    plan = enc._build_enc_plan(geom)
+    emit('dfs_encode', levels=list(DFS_TYPES), bytes=len(got),
+         equal_to_cpu=True, decodes_to_source=True,
+         lane_groups=[[g.w, len(g.lanes)] for g in plan.groups],
+         cpu_reference_s=cpu_s)
+    emit('dfs_path_launches', **launches)
+
+
 def main() -> int:
     import argparse
     import numpy as np
@@ -1394,6 +1546,26 @@ def main() -> int:
         emit('timing_multipass', frames=n, runs=40, median_ms=med,
              total_p75_ms=p75, mp_per_s=n * mp / (med['total'] / 1e3),
              card=card_id)
+
+    # 10. damaged streams, counted: cuts and a detected flip of the gray
+    # frame and of the 3-pass frame, cuts of the causal stream
+    resilient_phase((('gray_2048x1080_rev', gray, 7),
+                     ('gray_2048x1080_rev_p3', gray3, 8)), dev, kernels, K,
+                    R)
+    # ... and the resilient decode of the gray frame's 3/4 cut, timed
+    cut = gray[:len(gray) * 3 // 4]
+    med, p75 = timed(lambda: decode_frames([cut], dev, resilient=True), 10)
+    emit('timing_resilient', stream='gray_2048x1080_rev', case='cut_3_of_4',
+         frames=1, runs=10, median_ms=med, total_p75_ms=p75,
+         mp_per_s=mp / (med['total'] / 1e3), card=card_id)
+
+    # 11. Part-2 DFS encode, counted, then timed
+    dfs_phase(gray_ref, dev, kernels, K, E)
+    med, p75 = timed(lambda: encode_frames([gray_ref], dev,
+                                           make=dfs_encoder), 10)
+    emit('timing_dfs_encode', levels=list(DFS_TYPES), frames=1, runs=10,
+         median_ms=med, total_p75_ms=p75,
+         mp_per_s=mp / (med['total'] / 1e3), card=card_id)
 
     print(json.dumps({'kernels': list(kernels.values())}), flush=True)
     print(json.dumps({'ok': True, 'device': {

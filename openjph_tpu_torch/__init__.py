@@ -5,9 +5,16 @@ The host layer (codestream syntax, Tier-2, planning, packing, byte
 stuffing) is a copy of the JAX package's; the device paths are torch
 ops plus hand-written CUDA kernels for the HT cleanup-pass decode and
 encode and for the refinement passes (SigProp / MagRef) of multi-pass
-codeblocks, which the decode takes; the encode is cleanup-only.  Entry points run on the card (``device='cuda'``) unless the
-caller passes ``device='cpu'``, which runs the kernels' plain PyTorch
-versions; a CUDA request without a card raises RuntimeError.
+codeblocks, which the decode takes; the encode is cleanup-only.
+
+Decode takes damaged streams as the JAX package does: strict mode
+(the default) raises ValueError / EOFError, and ``resilient=True``
+returns full-size frames with broken codeblocks zeroed.  Encode takes
+Part-2 decomposition structures (``GpuEncoder(..., dfs_list=...)``) and
+arbitrary wavelet kernels (``atks=``).  Entry points run on the card
+(``device='cuda'``) unless the caller passes ``device='cpu'``, which
+runs the kernels' plain PyTorch versions; a CUDA request without a card
+raises RuntimeError.
 """
 from .core.message import OjphError, OjphWarning  # noqa: F401
 from .gpu.encode_pipeline import GpuEncoder, encode_gpu  # noqa: F401
@@ -15,10 +22,12 @@ from .gpu.pipeline import GpuDecoder, decode_gpu  # noqa: F401
 
 
 def decode(data: bytes, device='cuda', skip_res: int = 0,
-           raw: bool = True):
+           resilient: bool = False, raw: bool = True):
     """Decode a .j2c codestream, multi-pass codeblocks included, to
-    per-component numpy planes on ``device`` (see :func:`decode_gpu`)."""
-    return decode_gpu(data, device=device, skip_res=skip_res, raw=raw)
+    per-component numpy planes on ``device``; ``resilient=True`` decodes
+    damaged streams, zeroing broken codeblocks (see :func:`decode_gpu`)."""
+    return decode_gpu(data, device=device, skip_res=skip_res,
+                      resilient=resilient, raw=raw)
 
 
 def encode(planes, device='cuda', **kwargs) -> bytes:

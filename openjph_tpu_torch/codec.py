@@ -85,10 +85,12 @@ class Decoder:
         # (ojph_codestream.h:288-306): skip_res_for_read >= for_recon
         # record_t2: Tier-2 fills flat numpy record arrays instead of
         # CodedBlock objects (the fused device path consumes arrays;
-        # CodedBlocks materialize lazily).  Needs the native parser;
-        # resilience uses objects throughout.
-        self.record_t2 = (record_t2 and not resilient
-                          and native.have_native())
+        # CodedBlocks materialize lazily).  Needs the native parser.
+        # Resilience keeps record mode: the native parser writes a
+        # packet's records only once the whole packet parsed, and turns
+        # a codeblock cut off by the end of data into a dead record, so
+        # the arrays hold what object mode's CodedBlocks would.
+        self.record_t2 = record_t2 and native.have_native()
         self.tile_rects, geoms = _cached_geometry(data, self.hdr)
         self.tiles: List[_TileState] = []
         for i, geom in enumerate(geoms):

@@ -82,7 +82,7 @@ def _atk_bibo_gains(kernel, levels: int):
     indexing."""
     import numpy as _np
     from .atk import AtkKernel
-    from ..ops.dwt import fwd_atk_1d
+    from .lifting import fwd_atk_1d
     if kernel.reversible:
         steps = tuple(a / float(1 << e) for (a, b, e) in kernel.steps)
     else:
@@ -108,7 +108,7 @@ def _atk_energy_gains(kernel, levels: int):
     instead of tabulated): the maximum L2 norm over synthesis impulse
     responses, used to scale the per-band quantization delta."""
     import numpy as _np
-    from ..ops.dwt import inv_atk_1d
+    from .lifting import inv_atk_1d
     n = max(64, 1 << (levels + 4))
     cur = _np.eye(n, dtype=_np.float64)  # maps level-d L coeffs -> signal
     gl: List[float] = [1.0]

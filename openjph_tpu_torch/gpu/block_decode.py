@@ -101,6 +101,10 @@ def _bitrev(v, length, maxlen: int = 5):
 def _mel_get_run(mask, mel: _Reader, mel_k, run, mel_e):
     """Masked MEL run decode (dec_mel_st); lanes outside ``mask`` keep
     their state and consume nothing."""
+    if mask.device.type == 'cpu' and not bool(mask.any()):
+        # no lane decodes a run: skip the ops (a host-side test, so on
+        # the CPU only; on a card it would cost a sync a call)
+        return run, mel_k
     eva = mel_e[mel_k.clamp(0, 12)]
     b = mel.take(mask.to(torch.int64))
     one = mask & (b == 1)

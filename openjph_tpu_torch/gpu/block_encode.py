@@ -78,6 +78,10 @@ class _Mel:
         self.vals, self.lens = [], []
 
     def event(self, mask, bit):
+        if mask.device.type == 'cpu' and not bool(mask.any()):
+            # no lane has an event: its records would all be empty
+            # (a host-side test, so on the CPU only)
+            return
         e = _mel_exp(self.k)
         nz = mask & ~bit
         run2 = torch.where(nz, self.run + 1, self.run)

@@ -27,18 +27,19 @@ import torch
 from .. import native
 from ..codec import Encoder, build_encoder, normalize_planes
 from ..core.geometry import build_tile
+from ..core.markers import Dfs
 from ..core.t2 import CodedBlock, encode_precinct, precinct_iterator
 from . import color as clr
 from . import dwt
 from .block_encode_cuda import encode_cleanup
-from .pipeline import resolve_device
+from .pipeline import _res_band_list, resolve_device
 from .quant import tx_to_cb
 
 _ROADMAP_MULTIPASS = ('multi-pass (SigProp/MagRef) encoding is not ported '
                       'yet: ROADMAP.md Queue A, "Multi-pass encode"')
-_ROADMAP_COVERAGE = ('{} is not ported to the fused encode yet: '
-                     'ROADMAP.md Queue A, "Resilient decode and fused-path '
-                     'coverage contracts"')
+_ROADMAP_WIDE = ('a band of 31 or more bit planes is not ported to the '
+                 'fused encode yet: ROADMAP.md Queue A, "Resilient decode '
+                 'and fused-path coverage contracts", 7c')
 
 
 def _ebucket(n: int) -> int:
@@ -85,7 +86,8 @@ class _EncPlan:
     groups: List[_EncGroup]
     # band_id -> (comp, res, band, kmax, delta, reversible, H, W)
     bands: List[tuple]
-    # per comp: (reversible, bd, sgn, nlt3, res specs, wavelet kernel)
+    # per comp: (reversible, bd, sgn, nlt3, res specs, wavelet kernel);
+    # a res spec is (band ids, h_even, v_even, DFS level type)
     comps: List[tuple]
     mct: bool
 
@@ -141,13 +143,22 @@ class _EncRunner:
             cur = conv[ci]
             band_planes = {}
             for r in range(len(res_specs) - 1, 0, -1):
-                bids, h_even, v_even = res_specs[r]
-                ll, hl, lh, hh = dwt.fwd_dwt2d(cur, h_even, v_even, rev,
-                                               kern)
-                band_planes[bids[0]] = hl
-                band_planes[bids[1]] = lh
-                band_planes[bids[2]] = hh
-                cur = ll
+                # Part-2 DFS: a level splits both ways, one way, or not
+                # at all (the JAX package's Encoder._encode_comp)
+                bids, h_even, v_even, dt = res_specs[r]
+                if dt == Dfs.BIDIR_DWT:
+                    ll, hl, lh, hh = dwt.fwd_dwt2d(cur, h_even, v_even,
+                                                   rev, kern)
+                    band_planes[bids[0]] = hl
+                    band_planes[bids[1]] = lh
+                    band_planes[bids[2]] = hh
+                    cur = ll
+                elif dt == Dfs.HORZ_DWT:
+                    cur, band_planes[bids[0]] = dwt.fwd_atk_1d(
+                        cur, h_even, cur.ndim - 1, kern)
+                elif dt == Dfs.VERT_DWT:
+                    cur, band_planes[bids[0]] = dwt.fwd_atk_1d(
+                        cur, v_even, cur.ndim - 2, kern)
             band_planes[res_specs[0][0][0]] = cur
             for bid, bp in band_planes.items():
                 (_, _, _, kmax, delta, rev_b, _, _) = plan.bands[bid]
@@ -264,10 +275,11 @@ class GpuEncoder(Encoder):
     """Encoder whose sample conversion, colour transform, DWT,
     quantization and HT cleanup encoder run on ``device`` ('cuda' by
     default; 'cpu' runs the kernel's plain version).  Byte stuffing and
-    Tier-2 run on the host.  Configurations outside this slice
-    (multi-pass codeblocks, Part-2 DFS structures, bands of 31 or more
-    bit planes) raise NotImplementedError naming their ROADMAP.md
-    item."""
+    Tier-2 run on the host.  Part-2 decomposition structures
+    (``dfs_list=``) and wavelet kernels (``atks=``) are taken as the JAX
+    package's Encoder takes them.  Configurations outside this slice
+    (multi-pass codeblocks, bands of 31 or more bit planes) raise
+    NotImplementedError naming their ROADMAP.md item."""
 
     def __init__(self, *args, device='cuda', **kwargs):
         self.device = resolve_device(device)
@@ -288,14 +300,10 @@ class GpuEncoder(Encoder):
             for r in range(comp.num_decomps + 1):
                 res = comp.resolutions[r]
                 bids = []
-                for b in ([0] if r == 0 else [1, 2, 3]):
+                for b in _res_band_list(res, r):
                     sb = res.bands[b]
-                    if sb is None:
-                        raise NotImplementedError(_ROADMAP_COVERAGE.format(
-                            'a Part-2 DFS decomposition structure'))
                     if sb.kmax >= 31:
-                        raise NotImplementedError(_ROADMAP_COVERAGE.format(
-                            'a band of 31 or more bit planes'))
+                        raise NotImplementedError(_ROADMAP_WIDE)
                     bid = len(bands)
                     bands.append((c, r, b, sb.kmax, float(sb.delta),
                                   rev, sb.rect.h, sb.rect.w))
@@ -332,9 +340,11 @@ class GpuEncoder(Encoder):
                         _group_of(groups, run[5]).strips.append(
                             (run[0], 1, run[1], run[2], bid, run[3],
                              run[4]))
+                # each level's lifting parity comes from its own origin
                 res_specs.append((tuple(bids),
                                   (res.rect.x0 & 1) == 0,
-                                  (res.rect.y0 & 1) == 0))
+                                  (res.rect.y0 & 1) == 0,
+                                  int(res.dwt_type)))
             comps.append((rev, self.siz.comps[c].bit_depth,
                           self.siz.comps[c].is_signed,
                           self.hdr.nlt.type3_for(c), tuple(res_specs),
@@ -371,6 +381,7 @@ class GpuEncoder(Encoder):
                tuple(bands), tuple(comps), mct)
         return _EncPlan(key, glist, bands, comps, mct)
 
+    @torch.inference_mode()
     def _encode_tile(self, idx: int, tr, planes: List[np.ndarray]) \
             -> List[tuple]:
         geom = build_tile(self.hdr, idx, tr)

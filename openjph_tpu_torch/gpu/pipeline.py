@@ -23,13 +23,14 @@ from __future__ import annotations
 import threading
 from collections import OrderedDict
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
 from .. import native
 from ..codec import Decoder
+from ..core.message import warn as _wrn
 from ..core.markers import Dfs
 from . import color as clr
 from . import dwt
@@ -44,11 +45,9 @@ from .quant import tx_from_cb
 # packers produce identical buffers.
 _ROW = 512
 
-_ROADMAP_COVERAGE = ('this stream needs the coverage contracts that are '
-                     'not ported yet (resilient decode, broken '
-                     'codeblocks, more than 30 bit planes): ROADMAP.md '
-                     'Queue A, "Resilient decode and fused-path coverage '
-                     'contracts"')
+_ROADMAP_WIDE = ('codeblocks of more than 30 bit planes are not ported '
+                 'yet: ROADMAP.md Queue A, "Resilient decode and '
+                 'fused-path coverage contracts", 7c')
 
 
 def resolve_device(device) -> torch.device:
@@ -116,6 +115,8 @@ class _Plan:
     # len2, h_true, causal); pos == -1 marks a dead/padding lane
     lanes: object = None
     has_refine: bool = False
+    # live lanes deadened at plan time under resilience
+    broken: int = 0
 
 
 def _res_band_list(res, r: int):
@@ -297,13 +298,51 @@ def _build_skeleton(dec, tile_indices):
     return skel
 
 
-def _build_plan(dec, tile_indices=None) -> Optional[_Plan]:
-    """Per-frame plan from the Tier-2 record arrays; None when the
-    fused path cannot take the stream (more than 3 passes or 30 bit
-    planes, coded ranges past the end of the stream, a bad scup).
-    ``tile_indices`` restricts the plan to a subset of tiles."""
+def _broken_lanes(mm, npss, l0, l1, nb, poss, live, buf):
+    """The host decoder's per-codeblock checks (decode_codeblock,
+    coding/decoder.py:163-213), in its order, over a group's lanes.
+    Returns (code per lane: 0 for a decodable lane, else 1 + the index
+    of the first check it fails in _BROKEN, npasses after the clamps,
+    scup)."""
+    # the coded bytes a CodedBlock would hold, against the segment
+    # lengths (pass 2's only when the record has more than one pass)
+    avail = np.minimum(nb, buf.shape[0] - poss)
+    short = avail < l0 + np.where(npss > 1, l1, 0)
+    npss = np.where((npss > 1) & (l1 == 0), 1, npss)
+    many = npss > 3
+    huge = mm >= 62
+    tiny = l0 < 2
+    ok = live & ~(short | many | huge | tiny)
+    last = np.where(ok, poss + l0, 2)
+    scup = ((buf[last - 1].astype(np.int32) << 4)
+            + (buf[last - 2] & 0xF))
+    bad_scup = (scup < 2) | (scup > l0) | (scup > 4079)
+    code = np.select([short, many, huge, tiny, bad_scup],
+                     [1, 2, 3, 4, 5], 0)
+    code = np.where(live, code, 0)
+    npss = np.where(mm == 29, 1, npss)
+    return code, npss, scup
+
+
+# the host decoder's ValueError messages, by _broken_lanes code - 1
+_BROKEN = ('ojph error 0x00080002: wrong codeblock length',
+           'more than 3 coding passes not supported',
+           '64 bits insufficient for this codeblock',
+           'wrong codeblock length',
+           'invalid scup')
+
+
+def _build_plan(dec, tile_indices=None) -> _Plan:
+    """Per-frame plan from the Tier-2 record arrays.  A live lane that
+    the host decoder would refuse (short coded bytes, more than 3
+    passes, lcup < 2, a bad scup) raises its ValueError, or under
+    ``dec.resilient`` is planned as a dead lane (a zero block) and
+    counted in ``plan.broken``.  Lanes of more than 30 bit planes raise
+    NotImplementedError.  ``tile_indices`` restricts the plan to a
+    subset of tiles."""
     skel = _plan_skeleton(dec, tile_indices)
     buf = np.frombuffer(dec.data, np.uint8)
+    broken = 0
     glist = []
     key_groups = []
     pos_l, lcup_l, scup_l, p_l, qhl_l = [], [], [], [], []
@@ -320,29 +359,24 @@ def _build_plan(dec, tile_indices=None) -> Optional[_Plan]:
             poss[at:at + k] = pb[idx]
             at += k
         mm = rows[:, 0]
-        npss = rows[:, 1]
         l0 = rows[:, 2]
         l1 = rows[:, 3]
         inc = rows[:, 4]
         nb = rows[:, 5]
-        dead = (inc == 0) | (npss == 0) | (l0 == 0) | (nb == 0)
+        dead = (inc == 0) | (rows[:, 1] == 0) | (l0 == 0) | (nb == 0)
         live = ~dead
-        if bool(np.any(live & ((npss > 3) | (mm >= 30) | (l0 < 2)))):
-            return None
-        # reference pass-count clamps (decode_codeblock)
-        npss = np.where(live & ((l1 == 0) | (mm >= 29)), 1, npss)
+        code, npss, scup = _broken_lanes(mm, rows[:, 1], l0, l1, nb, poss,
+                                         live, buf)
+        if bool(code.any()):
+            if not dec.resilient:
+                raise ValueError(_BROKEN[int(code[code > 0][0]) - 1])
+            # the reference zeroes a broken codeblock and goes on
+            # (ojph_codeblock.cpp:214-225, ojph_precinct.cpp:558-568)
+            broken += int(np.count_nonzero(code))
+            live = live & (code == 0)
+        if bool(np.any(live & (mm >= 30))):
+            raise NotImplementedError(_ROADMAP_WIDE)
         l1 = np.where(npss <= 1, 0, l1)
-        # coded ranges must lie inside the stream: a corrupt header
-        # can declare lengths past EOF, and the native pack reads the
-        # (pos, l0 [+l1]) ranges with C pointers
-        if bool(np.any(live & (poss + l0 + l1 > buf.shape[0]))):
-            return None
-        last = np.where(live, poss + l0, 2)
-        scup = ((buf[last - 1].astype(np.int32) << 4)
-                + (buf[last - 2] & 0xF))
-        if bool(np.any(live & ((scup < 2) | (scup > l0)
-                               | (scup > 4079)))):
-            return None
         pad = g.n_pad - g.nm
         lcup_a = np.where(live, l0, 2).astype(np.int64)
         scup_a = np.where(live, scup, 2).astype(np.int64)
@@ -402,6 +436,7 @@ def _build_plan(dec, tile_indices=None) -> Optional[_Plan]:
                   np.concatenate(l2_l), np.concatenate(h_l),
                   np.concatenate(cs_l))
     plan.has_refine = any_refine
+    plan.broken = broken
     return plan
 
 
@@ -509,7 +544,8 @@ class _Runner:
 
     def mask(self, views, outs):
         """Dead and broken lanes decode to zero blocks (the caller raises
-        on the error flags before using them).  Returns (decs [F, n_pad,
+        on the error flags, or under resilience keeps the zero blocks,
+        as the reference does).  Returns (decs [F, n_pad,
         h, w] per group, errs of the groups' members)."""
         F = self.F
         decs, errs = [], []
@@ -824,26 +860,25 @@ class GpuDecoder(Decoder):
     Python objects); the planner and packers consume the arrays.
     ``raw`` selects the raw-bytes runner (True) or the dense-words one.
     Multi-pass codeblocks (SigProp / MagRef) are decoded on the device
-    after their cleanup pass.  Streams outside this slice (resilient
-    decode, more than 30 bit planes or 3 passes, broken codeblocks)
-    raise NotImplementedError naming their ROADMAP.md item."""
+    after their cleanup pass.  A broken codeblock raises ValueError, or
+    under ``resilient=True`` decodes to a zero block with warning
+    0x00080006 (once per decode); ``zeroed`` then holds how many were
+    zeroed (plan, kernel error flags).  Streams of more than 30 bit
+    planes raise NotImplementedError naming their ROADMAP.md item."""
 
     def __init__(self, data: bytes, device='cuda', raw: bool = True,
                  **kwargs):
         self.device = resolve_device(device)
         self.raw = raw
-        if kwargs.get('resilient'):
-            raise NotImplementedError(_ROADMAP_COVERAGE)
+        self.zeroed = (0, 0)
         kwargs.setdefault('record_t2', True)
         super().__init__(data, **kwargs)
 
+    @torch.inference_mode()
     def decode(self) -> List[np.ndarray]:
         if self._any_wide_band():
-            raise NotImplementedError(_ROADMAP_COVERAGE)
-        plan = _build_plan(self)
-        if plan is None:
-            raise NotImplementedError(_ROADMAP_COVERAGE)
-        return self._decode_fast(plan)
+            raise NotImplementedError(_ROADMAP_WIDE)
+        return self._decode_fast(_build_plan(self))
 
     def _any_wide_band(self) -> bool:
         for st in self.tiles:
@@ -925,8 +960,15 @@ class GpuDecoder(Decoder):
         args = _pack_device(pairs) if self.raw else _pack_dense(pairs)
         runner = _make_runner(plan, 1, self.device, self.raw)
         errs, outs = runner(*upload(args, self.device))
-        if bool(errs.any()):
+        nerr = int(errs.sum())
+        if nerr and not self.resilient:
             raise ValueError('U_q exceeds missing_msbs + 2')
+        self.zeroed = (plan.broken, nerr)
+        if plan.broken or nerr:
+            # the runner zeroed the flagged lanes (_Runner.mask), as
+            # the reference zeroes a broken codeblock
+            # (ojph_codeblock.cpp:214-225)
+            _wrn(0x00080006, 'broken codeblock(s) zeroed (resilient)')
         tile_planes = {
             st.geom.idx: [p[0].cpu().numpy() for p in outs[i]]
             for i, st in enumerate(self.tiles)}
@@ -934,11 +976,14 @@ class GpuDecoder(Decoder):
 
 
 def decode_gpu(data: bytes, device='cuda', skip_res: int = 0,
+               resilient: bool = False,
                raw: bool = True) -> List[np.ndarray]:
     """Decode a .j2c codestream on ``device``; returns per-component
     int32 planes (numpy).  Codeblocks with SigProp / MagRef passes are
-    refined on the device after their cleanup pass.  ``raw`` picks the
-    runner's input layout."""
-    return GpuDecoder(data, device=device, raw=raw,
+    refined on the device after their cleanup pass.  ``resilient``
+    decodes damaged streams as the reference does (broken codeblocks
+    zeroed, a truncated stream full-size); ``raw`` picks the runner's
+    input layout."""
+    return GpuDecoder(data, device=device, raw=raw, resilient=resilient,
                       skipped_res_for_read=skip_res,
                       skipped_res_for_recon=skip_res).decode()

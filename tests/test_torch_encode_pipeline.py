@@ -5,7 +5,8 @@ the rest of tests/test_tpu_encode_pipeline.py's cases, which that suite
 pins byte-identical to encode_tpu.  Each 5/3 stream decodes back to its
 image through the port's own decoder.  Also the plan against the JAX
 plan, a two-frame runner, and the guards: CUDA by default, no kernel
-launched on the CPU, and configurations outside this slice raising
+launched on the CPU, a Part-2 DFS structure byte-identical to the JAX
+host encoder, and configurations outside this slice raising
 NotImplementedError.
 """
 import functools
@@ -15,7 +16,9 @@ import pytest
 import torch
 
 from openjph_tpu import encode, encode_tpu
+from openjph_tpu.codec import Encoder as JaxEncoder
 from openjph_tpu.codec import build_encoder as jax_build_encoder
+from openjph_tpu.core import markers as jmk
 from openjph_tpu.core.geometry import build_tile as jax_build_tile
 from openjph_tpu.core.geometry import build_tile_grid as jax_tile_grid
 from openjph_tpu.tpu.encode_pipeline import TpuEncoder
@@ -123,8 +126,12 @@ def test_plan_matches_jax(shape, nc, kw):
         assert g.n_pad >= len(g.lanes) and g.n_pad % 8 == 0
     assert plan.bands == jplan.bands
     assert plan.mct == jplan.mct
-    # the wavelet kernel objects are each package's own class
-    assert [c[:5] for c in plan.comps] == [c[:5] for c in jplan.comps]
+    # the port's level specs also carry the level's DFS type (all
+    # BIDIR here); the wavelet kernel objects are each package's own
+    # class
+    assert [c[:4] + (tuple(r[:3] for r in c[4]),) for c in plan.comps] \
+        == [c[:5] for c in jplan.comps]
+    assert {r[3] for c in plan.comps for r in c[4]} == {mk.Dfs.BIDIR_DWT}
     assert [c[5].steps for c in plan.comps] == \
         [c[5].steps for c in jplan.comps]
 
@@ -148,16 +155,28 @@ def test_two_frame_runner_matches_single_frames():
         assert got == openjph_tpu_torch.encode_gpu(f, device='cpu', **kw)
 
 
-def _dfs_encoder():
-    siz = mk.Siz()
+def _dfs_encoder(m, make):
+    """A 32x32 encoder with a HORZ, VERT, BIDIR decomposition structure,
+    built from markers module ``m`` by ``make``."""
+    siz = m.Siz()
     siz.xsiz, siz.ysiz = 32, 32
-    siz.comps = [mk.CompInfo(8, False, 1, 1)]
-    dfs = mk.Dfs.from_types(0, [mk.Dfs.HORZ_DWT, mk.Dfs.VERT_DWT,
-                                mk.Dfs.BIDIR_DWT])
-    cod = mk.Cod(num_decomps=3, wavelet_kern=mk.DWT_REV53)
-    cocs = {0: mk.Cod(num_decomps=3, wavelet_kern=mk.DWT_REV53,
-                      comp_idx=0, dfs_idx=0)}
-    return ep.GpuEncoder(siz, cod, cocs=cocs, dfs_list=[dfs], device='cpu')
+    siz.comps = [m.CompInfo(8, False, 1, 1)]
+    dfs = m.Dfs.from_types(0, [m.Dfs.HORZ_DWT, m.Dfs.VERT_DWT,
+                               m.Dfs.BIDIR_DWT])
+    cod = m.Cod(num_decomps=3, wavelet_kern=m.DWT_REV53)
+    cocs = {0: m.Cod(num_decomps=3, wavelet_kern=m.DWT_REV53,
+                     comp_idx=0, dfs_idx=0)}
+    return make(siz, cod, cocs=cocs, dfs_list=[dfs])
+
+
+def test_dfs_encode_matches_jax_host_encoder():
+    """Part-2 DFS structures are in the slice: the stream is the JAX
+    host Encoder's (tests/test_torch_dfs_encode.py has the other cases)."""
+    img = _img(15, 32, 32)
+    got = _dfs_encoder(mk, _CPU_ENCODER).encode([img])
+    assert got == _dfs_encoder(jmk, JaxEncoder).encode([img])
+    assert np.array_equal(openjph_tpu_torch.decode(got, device='cpu')[0],
+                          img)
 
 
 def test_configurations_outside_the_slice_raise():
@@ -165,8 +184,6 @@ def test_configurations_outside_the_slice_raise():
     with pytest.raises(NotImplementedError,
                        match=r'ROADMAP\.md.*Multi-pass'):
         openjph_tpu_torch.encode_gpu(img, device='cpu', ht_passes=2)
-    with pytest.raises(NotImplementedError, match=r'DFS.*ROADMAP\.md'):
-        _dfs_encoder().encode([_img(15, 32, 32)])
     with pytest.raises(NotImplementedError,
                        match=r'31 or more bit planes.*ROADMAP\.md'):
         openjph_tpu_torch.encode_gpu(img, device='cpu', bit_depth=30)

@@ -193,11 +193,29 @@ def test_cuda_is_the_default_and_never_falls_back():
             tp.GpuDecoder(stream, device='cpu')))
 
 
-def test_streams_outside_the_slice_raise():
+def test_resilient_decode_of_a_clean_stream_equals_strict():
     img = _img(8, 48, 40)
     plain = encode([img], reversible=True, num_decomps=2)
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        openjph_tpu_torch.GpuDecoder(plain, device='cpu', resilient=True)
+    for raw in (True, False):
+        strict = openjph_tpu_torch.decode(plain, device='cpu', raw=raw)
+        res = openjph_tpu_torch.decode(plain, device='cpu', raw=raw,
+                                       resilient=True)
+        assert np.array_equal(strict[0], img)
+        assert np.array_equal(res[0], strict[0])
+
+
+def test_streams_outside_the_slice_raise():
+    """Bands of 31 or more bit planes (tests/test_highbit.py's streams)
+    raise NotImplementedError naming their ROADMAP.md item, in both
+    modes."""
+    rng = np.random.RandomState(9)
+    wide = encode([rng.randint(0, 1 << 31, (32, 32)).astype(np.int64)],
+                  bit_depth=31, reversible=True, num_decomps=2)
+    for resilient in (False, True):
+        with pytest.raises(NotImplementedError,
+                           match=r'more than 30 bit planes.*ROADMAP\.md'):
+            openjph_tpu_torch.GpuDecoder(wide, device='cpu',
+                                         resilient=resilient).decode()
 
 
 def test_cpu_decode_launches_no_kernel():
