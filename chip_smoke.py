@@ -20,9 +20,13 @@ decode rejects, decoded with resilient=True in both runner modes against
 the port's CPU decode (the same lanes zeroed), and the causal stream's
 cuts against the committed host decode; and the gray frame encoded with
 a Part-2 DFS structure (HORZ, VERT, three BIDIR levels) against the
-port's CPU encode, decoded back bit-exact.  It times each stage (device
-stages with CUDA events, host stages with the host clock), and prints one
-JSON line per result.
+port's CPU encode, decoded back bit-exact; and the video paths
+(VideoEncoder, VideoDecoder to the host in both runner modes and to the
+device) on 32 distinct 2048x1080 frames in bursts of 8, two in flight,
+against the per-frame encode and the sources, with 3-pass and damaged
+bursts, timed against the sequential per-burst path.  It times each stage
+(device stages with CUDA events, host stages with the host clock), and
+prints one JSON line per result.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --against OTHER.cu          # another build of
@@ -59,6 +63,8 @@ CAUSAL2 = os.path.join(TESTDATA, 'gray_512x256_rev_p2_causal.j2c')
 CAUSAL2_REF = os.path.join(TESTDATA,
                            'gray_512x256_rev_p2_causal_resilient.npz')
 BURST = 8
+# the video phase's distinct frames (four bursts)
+VIDEO_FRAMES = 32
 NOISE = (1080, 2048)  # the seeded noise frame of the block-shape phase
 # the seeded 12-bit frame of the encode phases: its odd sizes give edge
 # codeblocks of odd height and 63 wide
@@ -454,13 +460,14 @@ def decode_frames(datas, dev, raw: bool = True, resilient: bool = False):
     and broken lanes.  Returns (outputs, times in ms)."""
     import torch
     from openjph_tpu_torch.gpu.pipeline import (GpuDecoder, _build_plan,
-                                                _make_runner, _pack_dense,
-                                                _pack_device, upload)
+                                                _make_runner, _merge_words,
+                                                _pack_dense, _pack_device,
+                                                upload)
     t0 = time.perf_counter()
-    pairs = []
-    for d in datas:
-        dec = GpuDecoder(d, device=dev, raw=raw, resilient=resilient)
-        pairs.append((dec, _build_plan(dec)))
+    decs = [GpuDecoder(d, device=dev, raw=raw, resilient=resilient)
+            for d in datas]
+    # distinct frames of one geometry share the largest word buckets
+    pairs = list(zip(decs, _merge_words([_build_plan(d) for d in decs])))
     t1 = time.perf_counter()
     args = _pack_device(pairs) if raw else _pack_dense(pairs)
     t2 = time.perf_counter()
@@ -1307,6 +1314,246 @@ def dfs_phase(gray_ref, dev, kernels, K, E):
     emit('dfs_path_launches', **launches)
 
 
+def in_flight(v, bursts, collect, depth: int = 2):
+    """Every burst through the video coder ``v`` with up to ``depth`` in
+    flight; ``collect`` takes the oldest.  Returns the collected bursts
+    in order."""
+    out = []
+    for b in bursts:
+        if v.depth == depth:
+            out.append(collect())
+        v.submit(b)
+    while v.depth:
+        out.append(collect())
+    return out
+
+
+def video_frames(gray_ref):
+    """VIDEO_FRAMES distinct frames: the gray frame rolled 37 columns
+    further each."""
+    import numpy as np
+    return [np.ascontiguousarray(np.roll(gray_ref, 37 * k, axis=1))
+            for k in range(VIDEO_FRAMES)]
+
+
+def bursts_of(items):
+    return [items[i:i + BURST] for i in range(0, len(items), BURST)]
+
+
+def video_phase(gray, gray_ref, gray3, gray3_ref, dev, kernels, K, E, R):
+    """The video paths on distinct frames, counted: VideoEncoder on
+    VIDEO_FRAMES frames (bursts of BURST, two in flight) byte-identical to
+    the per-frame encode, frame 0 to gray_2048x1080_rev.j2c from its first
+    SOT; VideoDecoder on those streams to the host in both runner modes
+    and to the device, bit-exact with the frames; two bursts of the 3-pass
+    stream in each runner mode (K4) against its CPU decode;
+    decode_gpu_batch of the 3-pass stream and 6 frames, encode_gpu_batch
+    of 7 frames (bursts of 4, 2 and 1); a burst holding
+    the seed-7 flipped gray copy raising in strict mode and equal to the
+    per-frame resilient decodes, the same lanes zeroed.  Every launch
+    between the counts' reset and their reading is this phase's own; they
+    are added to ``kernels``.  Returns the encoded streams."""
+    import numpy as np
+    import torch
+    from openjph_tpu_torch import (VideoDecoder, VideoEncoder,
+                                   decode_gpu_batch, encode_gpu_batch)
+    from openjph_tpu_torch.gpu.encode_pipeline import encode_gpu
+    from openjph_tpu_torch.gpu.pipeline import (GpuDecoder, _build_plan,
+                                                _geometry_key)
+    frames = video_frames(gray_ref)
+    # references, not counted: the per-frame encodes on the card, and the
+    # per-frame resilient decodes of the damaged burst
+    t0 = time.perf_counter()
+    refs = [encode_gpu(f, device=dev, reversible=True) for f in frames]
+    flip_label, flip = damaged_copies(gray, dev, 7)[-1]
+    damaged = list(refs[:BURST])
+    damaged[BURST // 2] = flip
+    singles = [GpuDecoder(s, device=dev, resilient=True) for s in damaged]
+    single_out = [d.decode() for d in singles]
+    zeroed = tuple(sum(z) for z in zip(*(d.zeroed for d in singles)))
+    ref_s = time.perf_counter() - t0
+    K.reset_launches()
+    E.reset_launches()
+    R.reset_launches()
+    ve = VideoEncoder(device=dev, reversible=True)
+    streams = [st for b in in_flight(ve, bursts_of(frames), ve.collect)
+               for st in b]
+    if streams != refs:
+        bad = [k for k, (a, b) in enumerate(zip(streams, refs)) if a != b]
+        raise AssertionError(f'VideoEncoder streams {bad} differ from the '
+                             f'per-frame encode')
+    if from_sot(streams[0]) != from_sot(gray):
+        raise AssertionError('VideoEncoder frame 0 differs from '
+                             'gray_2048x1080_rev.j2c from its first SOT on')
+    counts = {'encode': (ve.fused_bursts, ve.fallback_bursts)}
+    ve.close()
+    # how many bursts of these frames need their word buckets merged to
+    # fuse (the reference decodes those frame by frame)
+    keys = [_build_plan(GpuDecoder(st, device=dev)).key for st in streams]
+    merged = sum(len(set(b)) > 1 for b in bursts_of(keys))
+    for raw in (True, False):
+        vd = VideoDecoder(device=dev, raw=raw)
+        got = [f for b in in_flight(vd, bursts_of(streams), vd.collect)
+               for f in b]
+        for k, (g, f) in enumerate(zip(got, frames)):
+            if len(g) != 1 or not np.array_equal(g[0], f):
+                raise AssertionError(f'VideoDecoder frame {k} differs from '
+                                     f'its source (raw={raw})')
+        counts['decode_raw' if raw else 'decode_dense'] = (
+            vd.fused_bursts, vd.fallback_bursts)
+        vd.close()
+    src = torch.from_numpy(np.stack(frames).astype(np.uint8)).to(dev)
+    # two in flight; every burst in flight (the staging ring of three
+    # buffers wraps while copies may run); pageable uploads
+    for name, depth, stage in (('decode_to_device', 2, True),
+                               ('decode_to_device_all_in_flight',
+                                VIDEO_FRAMES // BURST, True),
+                               ('decode_to_device_pageable', 2, False)):
+        vd = VideoDecoder(device=dev, to_device=True, stage_uploads=stage)
+        outs = in_flight(vd, bursts_of(streams), vd.collect_on_device,
+                         depth)
+        vd.drain_errors()
+        for b, o in enumerate(outs):
+            if not torch.equal(o[0][0], src[b * BURST:(b + 1) * BURST]):
+                raise AssertionError(f'{name}: burst {b} differs from its '
+                                     f'sources')
+        counts[name] = (vd.fused_bursts, vd.fallback_bursts)
+        vd.close()
+    for raw in (True, False):
+        vd = VideoDecoder(device=dev, raw=raw)
+        for b in in_flight(vd, [[gray3] * BURST] * 2, vd.collect):
+            if any(len(f) != 1 or not np.array_equal(f[0], gray3_ref[0])
+                   for f in b):
+                raise AssertionError(f'a 3-pass burst frame differs from '
+                                     f'the CPU decode (raw={raw})')
+        counts['multipass_raw' if raw else 'multipass_dense'] = (
+            vd.fused_bursts, vd.fallback_bursts)
+        vd.close()
+    # the synchronous batch entry points: 7 items, bursts of 4, 2 and 1,
+    # the 3-pass stream in the first (one geometry: the single-pass
+    # frames take its refinement buckets and run K4 on no pass)
+    got = decode_gpu_batch([gray3] + streams[:6], device=dev)
+    if not np.array_equal(got[0][0], gray3_ref[0]) or any(
+            not np.array_equal(g[0], f) for g, f in zip(got[1:], frames)):
+        raise AssertionError('decode_gpu_batch differs from the sources')
+    if encode_gpu_batch(frames[:7], device=dev, reversible=True) != refs[:7]:
+        raise AssertionError('encode_gpu_batch differs from the per-frame '
+                             'encode')
+    vd = VideoDecoder(device=dev)
+    vd.submit(damaged)
+    try:
+        vd.collect()
+    except ValueError:
+        pass
+    else:
+        raise AssertionError('the strict burst holding the damaged copy '
+                             'did not raise')
+    counts['damaged_strict'] = (vd.fused_bursts, vd.fallback_bursts)
+    vd.close()
+    vd = VideoDecoder(device=dev, resilient=True)
+    vd.submit(damaged)
+    got = vd.collect()
+    if any(not np.array_equal(g[0], w[0]) for g, w in zip(got, single_out)):
+        raise AssertionError('the resilient damaged burst differs from the '
+                             'per-frame resilient decodes')
+    if vd.zeroed != zeroed or zeroed[1] == 0:
+        raise AssertionError(f'the resilient burst zeroed {vd.zeroed} '
+                             f'lanes, frame by frame {zeroed}')
+    counts['damaged_resilient'] = (vd.fused_bursts, vd.fallback_bursts)
+    vd.close()
+    launches = {**K.LAUNCHES, **E.LAUNCHES, **R.LAUNCHES}
+    for k, v in launches.items():
+        if v == 0:
+            raise AssertionError(f'{k} was not launched on the video path')
+        kernels[k]['launches'] += v
+    if any(n == 0 for n, _ in counts.values()):
+        raise AssertionError(f'a video run fused no burst: {counts}')
+    emit('video', frames=VIDEO_FRAMES, burst=BURST, in_flight=2,
+         encode_equal_to_per_frame=True, frame0_equal_from_sot=True,
+         decode_bit_exact=['raw', 'dense', 'to_device',
+                           'to_device_all_in_flight',
+                           'to_device_pageable'],
+         multipass_bursts_bit_exact=True,
+         batch_entry_points_equal=['decode_gpu_batch', 'encode_gpu_batch'],
+         damaged_case=flip_label,
+         damaged_strict_raised=True, damaged_resilient_equal=True,
+         zeroed=list(zeroed), fused_and_fallback_bursts=counts,
+         plan_keys=len(set(keys)),
+         geometry_keys=len({_geometry_key(k) for k in keys}),
+         bursts_with_merged_word_buckets=merged, references_s=ref_s)
+    emit('video_path_launches', **launches)
+    return streams
+
+
+def video_timing(streams, gray_ref, dev, card_id: str, reps: int = 5):
+    """Wall ms of VIDEO_FRAMES frames, the sequential per-burst path
+    against the pipelined one (two bursts in flight), in turns (ABBA over
+    the repeats), reps each: decode to the device (decode_frames against
+    VideoDecoder(to_device=True)), decode to the host (decode_gpu_batch,
+    which returns what collect returns, against VideoDecoder), and encode
+    (encode_frames against VideoEncoder)."""
+    import torch
+    from openjph_tpu_torch import (VideoDecoder, VideoEncoder,
+                                   decode_gpu_batch)
+    frames = video_frames(gray_ref)
+    sbursts, fbursts = bursts_of(streams), bursts_of(frames)
+    vd_host = VideoDecoder(device=dev)
+    vd_dev = VideoDecoder(device=dev, to_device=True)
+    ve = VideoEncoder(device=dev, reversible=True)
+
+    def seq_dev():
+        for b in sbursts:
+            decode_frames(b, dev)
+
+    def seq_host():
+        decode_gpu_batch(streams, device=dev)
+
+    def pipe_dev():
+        in_flight(vd_dev, sbursts, vd_dev.collect_on_device)
+        vd_dev.drain_errors()
+        torch.cuda.synchronize()
+
+    def pipe_host():
+        in_flight(vd_host, sbursts, vd_host.collect)
+
+    def seq_enc():
+        for b in fbursts:
+            encode_frames(b, dev)
+
+    def pipe_enc():
+        in_flight(ve, fbursts, ve.collect)
+
+    mp = VIDEO_FRAMES * gray_ref.size / 1e6
+    for name, pair in (('decode_to_device', (seq_dev, pipe_dev)),
+                       ('decode_to_host', (seq_host, pipe_host)),
+                       ('encode', (seq_enc, pipe_enc))):
+        for fn in pair:  # warm-up
+            fn()
+        ms = {'sequential': [], 'pipelined': []}
+        for r in range(reps):
+            order = pair if r % 2 == 0 else pair[::-1]
+            for fn in order:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                key = 'sequential' if fn is pair[0] else 'pipelined'
+                ms[key].append((time.perf_counter() - t0) * 1e3)
+        med = {k: statistics.median(v) for k, v in ms.items()}
+        emit('video_timing', path=name, frames=VIDEO_FRAMES, burst=BURST,
+             in_flight=2, runs=reps, order='ABBA', wall_ms=ms,
+             median_ms=med,
+             mp_per_s={k: mp / (v / 1e3) for k, v in med.items()},
+             pipelined_over_sequential=med['sequential'] / med['pipelined'],
+             card=card_id)
+    emit('video_timing_bursts', decode_to_host=[vd_host.fused_bursts,
+                                                vd_host.fallback_bursts],
+         decode_to_device=[vd_dev.fused_bursts, vd_dev.fallback_bursts],
+         encode=[ve.fused_bursts, ve.fallback_bursts])
+    for v in (vd_host, vd_dev, ve):
+        v.close()
+
+
 def main() -> int:
     import argparse
     import numpy as np
@@ -1566,6 +1813,15 @@ def main() -> int:
     emit('timing_dfs_encode', levels=list(DFS_TYPES), frames=1, runs=10,
          median_ms=med, total_p75_ms=p75,
          mp_per_s=mp / (med['total'] / 1e3), card=card_id)
+
+    # 12. video: the burst coders on distinct frames, counted, then timed
+    # against the sequential per-burst path
+    t0 = time.perf_counter()
+    streams = video_phase(gray, gray_ref, gray3,
+                          refs['gray_2048x1080_rev_p3'], dev, kernels, K, E,
+                          R)
+    video_timing(streams, gray_ref, dev, card_id)
+    emit('video_phase_s', seconds=time.perf_counter() - t0)
 
     print(json.dumps({'kernels': list(kernels.values())}), flush=True)
     print(json.dumps({'ok': True, 'device': {

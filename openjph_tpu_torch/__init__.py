@@ -15,10 +15,17 @@ arbitrary wavelet kernels (``atks=``).  Entry points run on the card
 (``device='cuda'``) unless the caller passes ``device='cpu'``, which
 runs the kernels' plain PyTorch versions; a CUDA request without a card
 raises RuntimeError.
+
+Video: ``VideoDecoder`` / ``decode_gpu_batch`` and ``VideoEncoder`` /
+``encode_gpu_batch`` batch frames of one geometry into bursts, one
+device dispatch each, with host preparation, uploads and fetches on
+worker threads beside the card's work.
 """
 from .core.message import OjphError, OjphWarning  # noqa: F401
-from .gpu.encode_pipeline import GpuEncoder, encode_gpu  # noqa: F401
-from .gpu.pipeline import GpuDecoder, decode_gpu  # noqa: F401
+from .gpu.encode_pipeline import (GpuEncoder, VideoEncoder,  # noqa: F401
+                                  encode_gpu, encode_gpu_batch)
+from .gpu.pipeline import (GpuDecoder, VideoDecoder,  # noqa: F401
+                           decode_gpu, decode_gpu_batch)
 
 
 def decode(data: bytes, device='cuda', skip_res: int = 0,

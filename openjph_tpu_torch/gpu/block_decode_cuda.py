@@ -12,12 +12,15 @@ raises: there is no fallback.  The kernel decodes one codeblock per
 warp, ``PER_BLOCK`` codeblocks per CUDA block.  It is compiled with nvcc
 for sm_90a at first use into build/openjph_tpu_torch/ and bound with
 ctypes; it runs on the current CUDA stream and allocates nothing.
-``LAUNCHES`` counts the kernel launches of each entry point.
+``LAUNCHES`` counts the kernel launches of each entry point.  The
+library, the device tables and the counts are guarded by one lock, so
+worker threads (the video decoders') may launch it at once.
 """
 from __future__ import annotations
 
 import ctypes
 import os
+import threading
 
 import torch
 
@@ -40,6 +43,7 @@ MAX_SUFFIX = 4079
 
 _lib = None
 _TABLES = {}
+_LOCK = threading.Lock()
 
 
 def build(src: str = SRC, name: str = 'ht_cleanup_decode', defines=()):
@@ -67,19 +71,21 @@ def build(src: str = SRC, name: str = 'ht_cleanup_decode', defines=()):
 def load():
     """Build (once) and load the kernel library."""
     global _lib
-    if _lib is None:
-        _lib = build()
-    return _lib
+    with _LOCK:
+        if _lib is None:
+            _lib = build()
+        return _lib
 
 
 def _tables(device) -> torch.Tensor:
     """dec_vlc0|1 (2048) + dec_uvlc0|1 (576) as one int32 tensor."""
     key = str(device)
-    if key not in _TABLES:
-        vlc, uvlc, _ = plain.tables('cpu')
-        t = torch.cat([vlc, uvlc]).to(torch.int32)
-        _TABLES[key] = t.to(device)
-    return _TABLES[key]
+    with _LOCK:
+        if key not in _TABLES:
+            vlc, uvlc, _ = plain.tables('cpu')
+            t = torch.cat([vlc, uvlc]).to(torch.int32)
+            _TABLES[key] = t.to(device)
+        return _TABLES[key]
 
 
 def _check(device, **tensors):
@@ -122,7 +128,8 @@ def decode_cleanup(melw, vlcw, msw, p, width: int, height: int,
         raise ValueError('lane counts differ')
     out = launch_dense(load(), PER_BLOCK, melw, vlcw, msw, p, width,
                        height, qh_lim)
-    LAUNCHES['ht_cleanup_decode_dense'] += 1
+    with _LOCK:
+        LAUNCHES['ht_cleanup_decode_dense'] += 1
     return out
 
 
@@ -190,7 +197,8 @@ def decode_cleanup_raw(blob, lane_off, ms_n, sh_n, p, width: int,
         raise ValueError('lane counts differ')
     out = launch_raw(load(), PER_BLOCK, blob, lane_off, ms_n, sh_n, p,
                      width, height, qh_lim)
-    LAUNCHES['ht_cleanup_decode_raw'] += 1
+    with _LOCK:
+        LAUNCHES['ht_cleanup_decode_raw'] += 1
     return out
 
 
@@ -215,6 +223,7 @@ def launch_raw(lib, per_block: int, blob, lane_off, ms_n, sh_n, p,
 
 
 def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 

@@ -8,11 +8,14 @@ second, ``PER_BLOCK`` codeblocks per CUDA block.
 It is compiled with nvcc for sm_90a at first use into
 build/openjph_tpu_torch/ and bound with ctypes; it runs on the current
 CUDA stream and allocates nothing.  ``LAUNCHES`` counts its launches.
+The library, the device tables and the count are guarded by one lock, so
+worker threads (the video encoder's) may launch it at once.
 """
 from __future__ import annotations
 
 import ctypes
 import os
+import threading
 
 import numpy as np
 import torch
@@ -33,6 +36,7 @@ PER_BLOCK = 2
 
 _lib = None
 _TABLES = {}
+_LOCK = threading.Lock()
 
 
 def build(src: str = SRC, name: str = 'ht_cleanup_encode'):
@@ -54,9 +58,10 @@ def build(src: str = SRC, name: str = 'ht_cleanup_encode'):
 def load():
     """Build (once) and load the kernel library."""
     global _lib
-    if _lib is None:
-        _lib = build()
-    return _lib
+    with _LOCK:
+        if _lib is None:
+            _lib = build()
+        return _lib
 
 
 # MelEnc's exponent of each state k
@@ -98,14 +103,15 @@ def _tables(device) -> torch.Tensor:
     """enc_vlc0|1 (4,096), enc_uvlc's four columns (4 x 75), the MEL step
     table (2,720) and the MEL states' (k, run) (85), int32."""
     key = str(device)
-    if key not in _TABLES:
-        vlc, uvlc = plain.tables('cpu')
-        step, kr = mel_tables()
-        mel = torch.from_numpy(np.concatenate([step.reshape(-1), kr])
-                               .view(np.int32).astype(np.int64))
-        t = torch.cat([vlc, uvlc.reshape(-1), mel]).to(torch.int32)
-        _TABLES[key] = t.to(device)
-    return _TABLES[key]
+    with _LOCK:
+        if key not in _TABLES:
+            vlc, uvlc = plain.tables('cpu')
+            step, kr = mel_tables()
+            mel = torch.from_numpy(np.concatenate([step.reshape(-1), kr])
+                                   .view(np.int32).astype(np.int64))
+            t = torch.cat([vlc, uvlc.reshape(-1), mel]).to(torch.int32)
+            _TABLES[key] = t.to(device)
+        return _TABLES[key]
 
 
 def encode_cleanup(buf, p, width: int, height: int, caps, qhl):
@@ -137,7 +143,8 @@ def encode_cleanup(buf, p, width: int, height: int, caps, qhl):
     if buf.data_ptr() % 16:
         raise ValueError('buf must be 16-byte aligned')
     out = launch(load(), PER_BLOCK, buf, p, width, height, caps, qhl)
-    LAUNCHES['ht_cleanup_encode'] += 1
+    with _LOCK:
+        LAUNCHES['ht_cleanup_encode'] += 1
     return out
 
 
@@ -168,5 +175,6 @@ def launch(lib, per_block: int, buf, p, width: int, height: int, caps,
 
 
 def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0

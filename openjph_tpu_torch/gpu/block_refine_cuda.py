@@ -17,12 +17,15 @@ and on a launch of many codeblocks a block's chains share one warp.
 It is compiled with nvcc for sm_90a at first use into
 build/openjph_tpu_torch/ and bound with ctypes; it runs on the current
 CUDA stream and allocates nothing.  ``LAUNCHES`` counts the kernel
-launches of each entry point.
+launches of each entry point.  The library, the table hand-over and the
+counts are guarded by one lock, so worker threads (the video decoders')
+may launch it at once.
 """
 from __future__ import annotations
 
 import ctypes
 import os
+import threading
 
 import numpy as np
 import torch
@@ -51,6 +54,7 @@ TABLE_BYTES = 2 * TABLE_ENTRIES
 _lib = None
 # (library path, device index) pairs whose table is set
 _TABLES_SET = set()
+_LOCK = threading.Lock()
 
 
 def build(src: str = SRC, name: str = 'ht_refine_decode'):
@@ -85,9 +89,10 @@ def build(src: str = SRC, name: str = 'ht_refine_decode'):
 def load():
     """Build (once) and load the kernel library."""
     global _lib
-    if _lib is None:
-        _lib = build()
-    return _lib
+    with _LOCK:
+        if _lib is None:
+            _lib = build()
+        return _lib
 
 
 def spp_column_table() -> np.ndarray:
@@ -121,14 +126,16 @@ def set_tables(lib, device) -> None:
     source without the entry needs none."""
     fn = getattr(lib, 'ht_refine_set_tables', None)
     key = (lib._name, device.index)
-    if fn is None or key in _TABLES_SET:
-        return
-    table = spp_column_table()
-    with torch.cuda.device(device):
-        rc = fn(table.ctypes.data, table.nbytes)
-    if rc != 0:
-        raise RuntimeError(f'ht_refine_set_tables failed: CUDA error {rc}')
-    _TABLES_SET.add(key)
+    with _LOCK:
+        if fn is None or key in _TABLES_SET:
+            return
+        table = spp_column_table()
+        with torch.cuda.device(device):
+            rc = fn(table.ctypes.data, table.nbytes)
+        if rc != 0:
+            raise RuntimeError(f'ht_refine_set_tables failed: CUDA error '
+                               f'{rc}')
+        _TABLES_SET.add(key)
 
 
 def _check_lanes(dec, width: int, height: int, **lanes):
@@ -166,7 +173,8 @@ def refine(dec, spp, mrp, p, npasses, h_lim, causal, width: int,
            h_lim=h_lim, causal=causal)
     launch_dense(load(), PER_BLOCK, dec, spp, mrp, p, npasses, h_lim, causal,
                  width, height)
-    LAUNCHES['ht_refine_decode_dense'] += 1
+    with _LOCK:
+        LAUNCHES['ht_refine_decode_dense'] += 1
     return dec
 
 
@@ -222,7 +230,8 @@ def refine_raw(dec, blob, roff, len2, p, npasses, h_lim, causal,
            npasses=npasses, h_lim=h_lim, causal=causal)
     launch_raw(load(), PER_BLOCK, dec, blob, roff, len2, p, npasses, h_lim,
                causal, width, height)
-    LAUNCHES['ht_refine_decode_raw'] += 1
+    with _LOCK:
+        LAUNCHES['ht_refine_decode_raw'] += 1
     return dec
 
 
@@ -245,5 +254,6 @@ def launch_raw(lib, per_block: int, dec, blob, roff, len2, p, npasses,
 
 
 def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0

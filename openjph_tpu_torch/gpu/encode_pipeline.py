@@ -18,6 +18,8 @@ lanes: frame f of group g occupies lanes [f*n_pad, (f+1)*n_pad).
 from __future__ import annotations
 
 import functools
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Dict, List
 
@@ -26,14 +28,15 @@ import torch
 
 from .. import native
 from ..codec import Encoder, build_encoder, normalize_planes
-from ..core.geometry import build_tile
+from ..core.geometry import build_tile, build_tile_grid
 from ..core.markers import Dfs
 from ..core.t2 import CodedBlock, encode_precinct, precinct_iterator
 from . import color as clr
 from . import dwt
 from .block_encode_cuda import encode_cleanup
-from .pipeline import _res_band_list, resolve_device
+from .pipeline import _Cache, _res_band_list, resolve_device
 from .quant import tx_to_cb
+from .staging import Stager
 
 _ROADMAP_MULTIPASS = ('multi-pass (SigProp/MagRef) encoding is not ported '
                       'yet: ROADMAP.md Queue A, "Multi-pass encode"')
@@ -495,3 +498,146 @@ def _tile_packets(enc, geom, coded):
         packets.append((c, r, encode_precinct(
             res, pidx, coded[c][r], cod.uses_eph, cod.uses_sop)))
     return packets
+
+
+# ---------------------------------------------------------------------------
+# Bursts and video
+# ---------------------------------------------------------------------------
+
+_EF_BUCKETS = (8, 4, 2, 1)
+# burst runners by (plan key, frames, device)
+_ENC_RUNNERS = _Cache(32)
+
+
+class VideoEncoder:
+    """Pipelined burst encoder for sequences of frames of one shape, on
+    ``device`` ('cuda' by default; 'cpu' runs the kernel's plain
+    version); the keywords are openjph_tpu.encode's.
+
+    ``submit`` hands a burst to the workers and returns: the prep worker
+    narrows and stacks the frames; one of two io workers, each with its
+    own CUDA stream, uploads them, runs one runner (the device graph and
+    the HT cleanup encoder of the whole burst), fetches the coded words
+    and stuffs them into segments; the t2 worker packetizes and
+    assembles the codestreams.  ``collect`` returns the oldest burst's
+    codestreams, each byte-identical to ``encode_gpu`` of its frame.
+
+    A frame of several tiles, or a burst whose size is not one of
+    ``_EF_BUCKETS``, encodes frame by frame through ``GpuEncoder.encode``
+    on the same device; ``fused_bursts`` and ``fallback_bursts`` count
+    the two kinds.  A lane that overflows its word caps raises
+    RuntimeError.  Errors inside a worker surface at ``collect``."""
+
+    def __init__(self, device='cuda', **enc_kwargs):
+        self.device = resolve_device(device)
+        self._kwargs = enc_kwargs
+        self._enc = None
+        self._inflight = []
+        self.fused_bursts = 0
+        self.fallback_bursts = 0
+        self._stager = Stager(self.device)
+        self._io_streams = threading.local()
+        self._prep_pool = ThreadPoolExecutor(max_workers=1)
+        self._io_pool = ThreadPoolExecutor(max_workers=2)
+        self._t2_pool = ThreadPoolExecutor(max_workers=1)
+
+    def _ensure(self, frame) -> None:
+        planes0 = normalize_planes(frame)
+        self._enc = build_encoder(
+            planes0[0].shape, len(planes0),
+            functools.partial(GpuEncoder, device=self.device),
+            **self._kwargs)
+        trs = build_tile_grid(self._enc.siz)
+        self._plan = None
+        if len(trs) == 1:
+            self._geom = build_tile(self._enc.hdr, 0, trs[0])
+            self._plan = self._enc._build_enc_plan(self._geom)
+
+    def submit(self, frames) -> None:
+        """Enqueue a burst (a list of (H, W) or (H, W, C) arrays, or of
+        lists of planes)."""
+        self._inflight.append(self._prep_pool.submit(self._encode_burst,
+                                                     list(frames)))
+
+    def collect(self) -> List[bytes]:
+        """Block for and return the oldest burst's codestreams."""
+        item = self._inflight.pop(0).result()
+        if isinstance(item, list):
+            return item  # encoded frame by frame
+        return item.result()
+
+    @property
+    def depth(self) -> int:
+        return len(self._inflight)
+
+    def close(self) -> None:
+        """Stop the workers once the submitted bursts are done."""
+        for pool in (self._prep_pool, self._io_pool, self._t2_pool):
+            pool.shutdown(wait=True)
+
+    @torch.inference_mode()
+    def _encode_burst(self, frames):
+        if self._enc is None:
+            self._ensure(frames[0])
+        enc, plan = self._enc, self._plan
+        if plan is None or len(frames) not in _EF_BUCKETS:
+            self.fallback_bursts += 1
+            return [enc.encode(normalize_planes(f)) for f in frames]
+        self.fused_bursts += 1
+        F = len(frames)
+        runner = _ENC_RUNNERS.get((plan.key, F, self.device),
+                                  lambda: _make_enc_runner(plan, F,
+                                                           self.device))
+        planes = [normalize_planes(f) for f in frames]
+        stacks = [np.stack([_narrow_tile_plane(enc.siz, self._geom, c, p[c])
+                            for p in planes])
+                  for c in range(enc.siz.num_comps)]
+        cfut = self._io_pool.submit(self._io, runner, stacks)
+        return self._t2_pool.submit(self._t2, cfut)
+
+    def _io_stream(self):
+        """This io worker's own CUDA stream (None on the CPU)."""
+        if self.device.type != 'cuda':
+            return None
+        s = getattr(self._io_streams, 'stream', None)
+        if s is None:
+            s = self._io_streams.stream = torch.cuda.Stream(self.device)
+        return s
+
+    @torch.inference_mode()
+    def _io(self, runner: _EncRunner, stacks):
+        """Upload, encode and stuff one burst on this worker's stream
+        (the fetch synchronises that stream): its coded blocks."""
+        stream = self._io_stream()
+        codeds = [_empty_coded(self._geom, len(stacks))
+                  for _ in range(runner.F)]
+        with torch.cuda.stream(stream):
+            planes = self._stager.upload((runner.plan.key, runner.F),
+                                         stacks, stream)
+            cats, aux = runner(*planes)
+            self._enc._consume_outs(runner.plan, cats, aux, codeds)
+        return codeds
+
+    def _t2(self, cfut) -> List[bytes]:
+        enc, geom = self._enc, self._geom
+        return [enc.assemble([_tile_packets(enc, geom, coded)])
+                for coded in cfut.result()]
+
+
+def encode_gpu_batch(frames, device='cuda', **kwargs) -> List[bytes]:
+    """Encode many frames of one shape on ``device``, batched into
+    bursts of _EF_BUCKETS sizes (see :class:`VideoEncoder`); each
+    codestream is byte-identical to ``encode_gpu`` of its frame."""
+    enc = VideoEncoder(device=device, **kwargs)
+    try:
+        i = 0
+        while i < len(frames):
+            F = next(f for f in _EF_BUCKETS if f <= len(frames) - i)
+            enc.submit(frames[i:i + F])
+            i += F
+        out = []
+        while enc.depth:
+            out.extend(enc.collect())
+        return out
+    finally:
+        enc.close()

@@ -172,6 +172,9 @@ def test_importing_the_port_loads_no_jax():
             'import openjph_tpu_torch.gpu.encode_pipeline\n'
             'import openjph_tpu_torch.gpu.block_encode_cuda\n'
             'import openjph_tpu_torch.gpu.block_refine_cuda\n'
+            'import openjph_tpu_torch.gpu.staging\n'
+            'from openjph_tpu_torch import (VideoDecoder, VideoEncoder,\n'
+            '    decode_gpu_batch, encode_gpu_batch)\n'
             'bad = [m for m in sys.modules if m.split(".")[0] in '
             '("jax", "jaxlib", "openjph_tpu")]\n'
             'assert not bad, bad\n')
