@@ -24,9 +24,18 @@ port's CPU encode, decoded back bit-exact; and the video paths
 (VideoEncoder, VideoDecoder to the host in both runner modes and to the
 device) on 32 distinct 2048x1080 frames in bursts of 8, two in flight,
 against the per-frame encode and the sources, with 3-pass and damaged
-bursts, timed against the sequential per-burst path.  It times each stage
-(device stages with CUDA events, host stages with the host clock), and
-prints one JSON line per result.
+bursts, timed against the sequential per-burst path; the CLI apps from
+files (compress of the gray frame against its repository stream from the
+first SOT, expand of it, of the 3-pass and RGB streams and at reduced
+resolutions against decode_gpu and the CPU decode, each timed); the RTP
+receiver on loopback (8 frames decoded on the card to .ppm, bit-exact,
+and a frame with a dropped packet under resilient=True); and tracing: the
+stage timers on every path, their cost, and torch.profiler windows (one
+frame and bursts, decode and encode, 32 frames through VideoDecoder, the
+3-pass frame) with the card's busy share, its top ops and its longest
+idle gaps, the traces written gzipped under traces/.  It
+times each stage (device stages with CUDA events, host stages with the
+host clock), and prints one JSON line per result.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --against OTHER.cu          # another build of
@@ -42,6 +51,7 @@ any phase fails.  The last line of standard output is
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -1554,6 +1564,541 @@ def video_timing(streams, gray_ref, dev, card_id: str, reps: int = 5):
         v.close()
 
 
+# ---------------------------------------------------------------------------
+# The CLI apps, the stream receiver and tracing
+# ---------------------------------------------------------------------------
+
+# the stage names the traced runs of the trace phase must give (PERF.md
+# section 3 pairs each with the port's code)
+STAGES = ('decode.plan', 'decode.host_prep', 'decode.compile',
+          'decode.device', 'decode.upload', 'decode.assemble',
+          'decode.dispatch', 'decode.fetch', 'encode.plan',
+          'encode.compile', 'encode.device', 'encode.upload',
+          'encode.segment_pack', 'encode.pack.fetch', 'encode.pack.stuff',
+          'encode.pack.fill', 'encode.t2', 'encode.host_prep',
+          'encode.dev.upload_exec', 'encode.dev.aux_fetch')
+# the kernels' names as the profiler shows them
+K2_NAME = 'ojk::ht_cleanup_kernel<true>'
+K3_NAME = 'oje::ht_cleanup_encode_kernel'
+K4_NAME = 'ojr::ht_refine_kernel<true>'
+TRACE_DIR = os.path.join(ROOT, 'traces')
+STREAM_MTU = 1400
+
+
+def host_ms(fn, reps: int = 5) -> float:
+    """Median host-clock ms of fn() over reps runs (fn waits for its
+    results)."""
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts)
+
+
+def quiet_cli(main, argv):
+    """main(argv) with its standard output (the 'Elapsed time' line)
+    swallowed and its standard error kept; returns the exit code."""
+    import io
+    with contextlib.redirect_stdout(io.StringIO()):
+        return main(argv)
+
+
+def apps_phase(gray, gray_ref, gray3, rgb, dev, kernels, K, E, R, card_id):
+    """The port's CLIs on the card, from files: compress of the gray
+    frame (.pgm, -reversible true, CLI defaults otherwise) byte-identical
+    to gray_2048x1080_rev.j2c from its first SOT on; expand of it to .pgm
+    bit-exact with the source; expand of the 3-pass stream equal to
+    decode_gpu's; of the RGB 9/7 stream to .ppm equal to decode_gpu's
+    clipped to 8 bits; -skip_res 1 (half size) equal to decode_gpu's with
+    skip_res=1 clipped; -skip_res 2,1 equal to the port's CPU decode
+    with those read / reconstruction values.  Counted; then each CLI run
+    timed on the host clock (median of 5)."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from openjph_tpu_torch.apps import compress, expand
+    from openjph_tpu_torch.gpu.pipeline import GpuDecoder, decode_gpu
+    from openjph_tpu_torch.utils import imageio
+    tmp = tempfile.mkdtemp(prefix='ojph_apps_')
+    try:
+        src = os.path.join(tmp, 'gray.pgm')
+        imageio.write_pnm(src, gray_ref.astype(np.uint8))
+        paths = {'gray': os.path.join(tmp, 'gray.j2c'),
+                 'gray3': os.path.join(tmp, 'gray3.j2c'),
+                 'rgb': os.path.join(tmp, 'rgb.j2c')}
+        for k, data in (('gray3', gray3), ('rgb', rgb)):
+            with open(paths[k], 'wb') as f:
+                f.write(data)
+        # references, not counted
+        t0 = time.perf_counter()
+        ref3 = decode_gpu(gray3, device=dev)
+        ref_rgb = np.stack(decode_gpu(rgb, device=dev), axis=-1)
+        ref_skip1 = np.clip(decode_gpu(gray, device=dev, skip_res=1)[0], 0,
+                            255).astype(np.uint8)
+        ref_skip21 = np.clip(GpuDecoder(
+            gray, device='cpu', skipped_res_for_read=2,
+            skipped_res_for_recon=1).decode()[0], 0, 255).astype(np.uint8)
+        ref_s = time.perf_counter() - t0
+        runs = {
+            'compress_gray': (compress.main,
+                              ['-i', src, '-o', paths['gray'],
+                               '-reversible', 'true']),
+            'expand_gray_pgm': (expand.main,
+                                ['-i', paths['gray'], '-o',
+                                 os.path.join(tmp, 'gray_out.pgm')]),
+            'expand_3pass_pgm': (expand.main,
+                                 ['-i', paths['gray3'], '-o',
+                                  os.path.join(tmp, 'gray3.pgm')]),
+            'expand_rgb_ppm': (expand.main,
+                               ['-i', paths['rgb'], '-o',
+                                os.path.join(tmp, 'rgb.ppm')]),
+            'expand_skip_1': (expand.main,
+                              ['-i', paths['gray'], '-o',
+                               os.path.join(tmp, 'skip1.pgm'),
+                               '-skip_res', '1']),
+            'expand_skip_2_1': (expand.main,
+                                ['-i', paths['gray'], '-o',
+                                 os.path.join(tmp, 'skip21.pgm'),
+                                 '-skip_res', '2,1']),
+        }
+        K.reset_launches()
+        E.reset_launches()
+        R.reset_launches()
+        for name, (main, argv) in runs.items():
+            if quiet_cli(main, argv) != 0:
+                raise AssertionError(f'{name} exited non-zero')
+            if name == 'compress_gray':
+                with open(paths['gray'], 'rb') as f:
+                    if from_sot(f.read()) != from_sot(gray):
+                        raise AssertionError(
+                            'the compress CLI differs from '
+                            'gray_2048x1080_rev.j2c from its first SOT on')
+        launches = {**K.LAUNCHES, **E.LAUNCHES, **R.LAUNCHES}
+        read = imageio.read_pnm
+        checks = (
+            ('expand_gray_pgm', read(runs['expand_gray_pgm'][1][3]),
+             gray_ref.astype(np.uint8)),
+            ('expand_3pass_pgm', read(runs['expand_3pass_pgm'][1][3]),
+             ref3[0].astype(np.uint8)),
+            ('expand_rgb_ppm', read(runs['expand_rgb_ppm'][1][3]),
+             ref_rgb.astype(np.uint8)),
+            ('expand_skip_1', read(runs['expand_skip_1'][1][3]), ref_skip1),
+            ('expand_skip_2_1', read(runs['expand_skip_2_1'][1][3]),
+             ref_skip21))
+        for name, got, want in checks:
+            if got.shape != want.shape or not np.array_equal(got, want):
+                raise AssertionError(f'{name}: {got.shape} differs from '
+                                     f'the reference {want.shape}')
+        half = tuple(-(-n // 2) for n in gray_ref.shape)
+        if read(runs['expand_skip_1'][1][3]).shape != half:
+            raise AssertionError(f'-skip_res 1 is not {half}')
+        for k in ('ht_cleanup_decode_raw', 'ht_cleanup_encode',
+                  'ht_refine_decode_raw'):
+            if launches[k] == 0:
+                raise AssertionError(f'{k} was not launched by the CLIs')
+        for k, v in launches.items():
+            kernels[k]['launches'] += v
+        emit('apps', compress_equal_from_sot=True,
+             expand_bit_exact=[name for name, _, _ in checks],
+             skip_res_1_shape=list(half), references_s=ref_s)
+        emit('apps_path_launches', **launches)
+        ms = {name: host_ms(lambda m=main, a=argv: quiet_cli(m, a))
+              for name, (main, argv) in runs.items()}
+        emit('apps_timing', runs=5, median_ms=ms, card=card_id)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def rtp_packet(seq, ts, payload, main=False, marked=False, pos=0):
+    """One RTP packet of the layout the receiver parses (RFC 3550 header,
+    the J2K payload header's packet type, ESEQ and position)."""
+    import struct
+    from openjph_tpu_torch.apps.stream_expand import RtpPacket
+    hdr = bytearray(20)
+    hdr[0] = 0x80
+    hdr[1] = (0x80 if marked else 0) | 96
+    struct.pack_into('>H', hdr, 2, seq & 0xFFFF)
+    struct.pack_into('>I', hdr, 4, ts)
+    struct.pack_into('>I', hdr, 8, 0x1234)
+    hdr[12] = (RtpPacket.PT_MAIN_FOLLOWED_BY_BODY if main
+               else RtpPacket.PT_BODY) << 6
+    hdr[15] = (seq >> 16) & 0xFF
+    if not main:
+        hdr[16] = (pos >> 4) & 0xFF
+        hdr[17] = (pos & 0xF) << 4
+    return bytes(hdr) + payload
+
+
+def packetize(stream: bytes, ts: int, seq0: int):
+    """``stream`` in STREAM_MTU-byte packets: the first a main-header
+    packet, the last marked.  Returns (packets, next sequence number)."""
+    chunks = [stream[i:i + STREAM_MTU]
+              for i in range(0, len(stream), STREAM_MTU)]
+    pkts = [rtp_packet(seq0 + i, ts, ch, main=(i == 0),
+                       marked=(i == len(chunks) - 1), pos=i)
+            for i, ch in enumerate(chunks)]
+    return pkts, seq0 + len(chunks)
+
+
+def loopback(frames_packets, target, resilient=False):
+    """serve() on the card, on a loopback port chosen free now, fed
+    ``frames_packets`` (per frame its packets), paced so that neither the
+    socket buffer nor the reorder window drops a packet; returns its
+    (packets, frames) handlers and the wall seconds."""
+    import socket
+    from openjph_tpu_torch.apps.stream_expand import serve
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+        s.bind(('127.0.0.1', 0))
+        port = s.getsockname()[1]
+    result = {}
+
+    def rx():
+        try:
+            result['out'] = serve('127.0.0.1', port, num_threads=2,
+                                  num_packets=5, recv_buf_size=1 << 24,
+                                  quiet=True, target=target,
+                                  max_frames=len(frames_packets),
+                                  resilient=resilient)
+        except Exception as e:  # re-raised below, in the main thread
+            result['error'] = e
+
+    t = threading.Thread(target=rx, daemon=True)
+    t0 = time.perf_counter()
+    t.start()
+    time.sleep(0.3)
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as tx:
+        for pkts in frames_packets:
+            for i, p in enumerate(pkts):
+                tx.sendto(p, ('127.0.0.1', port))
+                if i % 16 == 15:
+                    time.sleep(0.001)
+            # the previous frame decodes while the socket is quiet
+            time.sleep(0.05)
+    t.join(timeout=60)
+    if t.is_alive():
+        raise AssertionError('the stream receiver is still running 60 s '
+                             'after the last packet')
+    if 'error' in result:
+        raise result['error']
+    return result['out'] + (time.perf_counter() - t0,)
+
+
+def stream_phase(streams, gray_ref, dev, kernels, K, R, card_id):
+    """The RTP receiver on the card: serve() with two decode workers
+    receives 8 distinct frames (the video phase's streams, STREAM_MTU
+    packets) on loopback and writes them as .ppm, each bit-exact with its
+    source; then one more frame with a body packet dropped, received with
+    resilient=True: full-size and equal to the port's resilient decode of
+    the bytes the receiver assembled.  Counted."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from openjph_tpu_torch.gpu.pipeline import decode_gpu
+    from openjph_tpu_torch.utils.imageio import read_pnm
+    frames = video_frames(gray_ref)[:BURST]
+    sent, seq = [], 0
+    for k, st in enumerate(streams[:BURST]):
+        pkts, seq = packetize(st, 1000 + k, seq)
+        sent.append(pkts)
+    lossy_pkts, _ = packetize(streams[BURST], 5000, 0)
+    drop = len(lossy_pkts) // 2
+    lossy = (streams[BURST][:drop * STREAM_MTU]
+             + streams[BURST][(drop + 1) * STREAM_MTU:])
+    want = decode_gpu(lossy, device=dev, resilient=True)[0]
+    tmp = tempfile.mkdtemp(prefix='ojph_stream_')
+    try:
+        K.reset_launches()
+        R.reset_launches()
+        packets, fh, wall_s = loopback(sent,
+                                       os.path.join(tmp, 'frame_%03d.ppm'))
+        stats = fh.get_stats()
+        if stats != (BURST, 0, 0) or packets.get_num_lost_packets():
+            raise AssertionError(f'the receiver saw (frames, truncated, '
+                                 f'lost) = {stats}, '
+                                 f'{packets.get_num_lost_packets()} packets '
+                                 f'lost')
+        for k, f in enumerate(frames):
+            got = read_pnm(os.path.join(tmp, 'frame_%03d.ppm' % k))
+            if not np.array_equal(got, f.astype(np.uint8)):
+                raise AssertionError(f'received frame {k} differs from its '
+                                     f'source')
+        k2 = K.LAUNCHES['ht_cleanup_decode_raw']
+        if k2 < BURST:
+            raise AssertionError(f'{k2} K2 launches for {BURST} frames')
+        packets, fh, lossy_s = loopback(
+            [lossy_pkts[:drop] + lossy_pkts[drop + 1:]],
+            os.path.join(tmp, 'lossy_%03d.ppm'), resilient=True)
+        got = read_pnm(os.path.join(tmp, 'lossy_000.ppm'))
+        if got.shape != gray_ref.shape or not np.array_equal(
+                got, want.astype(np.uint8)):
+            raise AssertionError('the frame with a dropped packet differs '
+                                 'from the resilient decode')
+        launches = {**K.LAUNCHES, **R.LAUNCHES}
+        for k, v in launches.items():
+            kernels[k]['launches'] += v
+        emit('stream', frames=BURST, mtu=STREAM_MTU, decode_workers=2,
+             packets=sum(len(p) for p in sent), bit_exact=True,
+             wall_s=wall_s, lossy_frame_full_size=True,
+             lossy_equal_to_resilient_decode=True, lossy_dropped_packet=drop,
+             lossy_packets_lost=packets.get_num_lost_packets(),
+             lossy_wall_s=lossy_s, card=card_id)
+        emit('stream_path_launches', **launches)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+@contextlib.contextmanager
+def gc_pauses():
+    """Yields a list that fills with the interpreter's garbage-collection
+    pauses inside the block, as (generation, ms)."""
+    import gc
+    pauses, t0 = [], [0.0]
+
+    def cb(phase, info):
+        if phase == 'start':
+            t0[0] = time.perf_counter()
+        else:
+            pauses.append((info['generation'],
+                           (time.perf_counter() - t0[0]) * 1e3))
+
+    gc.callbacks.append(cb)
+    try:
+        yield pauses
+    finally:
+        gc.callbacks.remove(cb)
+
+
+def device_windows(events):
+    """(window start, end) of the profiled region (its 'window' range)
+    and the merged busy intervals of the card's kernels, copies and sets
+    inside it, in trace microseconds."""
+    win = [e for e in events if e.get('name') == 'window'
+           and e.get('ph') == 'X' and e.get('cat') == 'user_annotation']
+    if len(win) != 1:
+        raise AssertionError(f'{len(win)} window ranges in the trace')
+    w0 = float(win[0]['ts'])
+    w1 = w0 + float(win[0]['dur'])
+    dev = sorted((max(float(e['ts']), w0),
+                  min(float(e['ts']) + float(e['dur']), w1), e['name'])
+                 for e in events
+                 if e.get('cat') in ('kernel', 'gpu_memcpy', 'gpu_memset')
+                 and e.get('ph') == 'X')
+    busy = []
+    for a, b, _ in dev:
+        if b <= a:
+            continue
+        if busy and a <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], b)
+        else:
+            busy.append([a, b])
+    return w0, w1, dev, busy
+
+
+def window_report(path: str):
+    """The busy share of the card over the profiled window of the Chrome
+    trace ``path``, the 8 device ops of most total time, and the 3
+    longest idle gaps with the innermost host range (op or stage) open at
+    each gap's start on each host thread, and the stages that overlap the
+    gap most (ms of overlap, summed over threads; nested stages count
+    each)."""
+    with open(path) as f:
+        doc = json.load(f)
+    events = doc['traceEvents'] if isinstance(doc, dict) else doc
+    w0, w1, dev, busy = device_windows(events)
+    if not dev:
+        raise AssertionError(f'{path}: the profiler recorded no device '
+                             f'event: the busy share is not measured')
+    span = w1 - w0
+    busy_us = sum(b - a for a, b in busy)
+    by_name = {}
+    for a, b, name in dev:
+        t = by_name.setdefault(name, [0.0, 0])
+        t[0] += b - a
+        t[1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    gaps, at = [], w0
+    for a, b in busy + [[w1, w1]]:
+        if a > at:
+            gaps.append((a - at, at))
+        at = max(at, b)
+    stages = [e for e in events if e.get('ph') == 'X'
+              and e.get('cat') == 'user_annotation'
+              and e.get('name') != 'window']
+
+    def during(t, g):
+        ov = {}
+        for e in stages:
+            a = max(t, float(e['ts']))
+            b = min(t + g, float(e['ts']) + float(e['dur']))
+            if b > a:
+                ov[e['name']] = ov.get(e['name'], 0.0) + (b - a) / 1e3
+        return dict(sorted(ov.items(), key=lambda kv: -kv[1])[:4])
+    host = [e for e in events if e.get('ph') == 'X'
+            and e.get('cat') in ('cpu_op', 'user_annotation')
+            and e.get('name') != 'window']
+
+    def open_at(t):
+        inner = {}
+        for e in host:
+            if float(e['ts']) <= t < float(e['ts']) + float(e['dur']):
+                cur = inner.get(e['tid'])
+                if cur is None or float(e['dur']) < float(cur['dur']):
+                    inner[e['tid']] = e
+        return sorted(e['name'][:120] for e in inner.values())
+
+    return {'wall_trace_ms': span / 1e3, 'device_busy_ms': busy_us / 1e3,
+            'busy_share': busy_us / span, 'idle_share': 1 - busy_us / span,
+            'device_events': len(dev),
+            'top_device_ops': [{'name': n[:120], 'ms': v[0] / 1e3,
+                                'calls': v[1]} for n, v in top],
+            'idle_gaps': [{'ms': g / 1e3, 'at_ms': (t - w0) / 1e3,
+                           'open_host_ranges': open_at(t),
+                           'stages_ms': during(t, g)}
+                          for g, t in sorted(gaps, reverse=True)[:3]],
+            'names': set(by_name)}
+
+
+def trace_phase(gray, gray_ref, gray3, streams, dev, kernels, K, E, R,
+                card_id):
+    """Tracing on the card: the stage timers over one-frame decode and
+    encode, an 8-frame decode_gpu_batch and 16 frames through the video
+    coders, every name of STAGES present; their cost (one-frame decode
+    and encode with tracing disabled and enabled, ABBA, 20 runs each);
+    and torch.profiler windows on the warm paths, each ending in a
+    synchronise, with the card's busy share, its top ops, its longest
+    idle gaps and the interpreter's garbage-collection pauses (per
+    generation: count, total ms, longest ms).  Counted."""
+    import gzip
+    import shutil
+    import torch
+    from openjph_tpu_torch import (VideoDecoder, VideoEncoder, decode_gpu,
+                                   decode_gpu_batch, encode_gpu,
+                                   encode_gpu_batch, trace)
+    frames = video_frames(gray_ref)
+    K.reset_launches()
+    E.reset_launches()
+    R.reset_launches()
+    # 1. the stage timers
+    trace.reset()
+    trace.enable()
+    try:
+        decode_gpu(gray, device=dev)
+        encode_gpu(gray_ref, device=dev, reversible=True)
+        decode_gpu_batch([gray] * BURST, device=dev)
+        vd = VideoDecoder(device=dev)
+        in_flight(vd, bursts_of(streams[:2 * BURST]), vd.collect)
+        vd.close()
+        ve = VideoEncoder(device=dev, reversible=True)
+        in_flight(ve, bursts_of(frames[:2 * BURST]), ve.collect)
+        ve.close()
+    finally:
+        trace.disable()
+    stats = trace.get_stats()
+    missing = [s for s in STAGES if stats.get(s, {}).get('calls', 0) < 1]
+    if missing:
+        raise AssertionError(f'stages not timed: {missing}')
+    print(trace.report(), flush=True)
+    emit('trace_stages', stages=stats, card=card_id)
+
+    # 2. the stage timers' cost, in turns
+    runs = {('decode', False): [], ('decode', True): [],
+            ('encode', False): [], ('encode', True): []}
+    work = {'decode': lambda: decode_gpu(gray, device=dev),
+            'encode': lambda: encode_gpu(gray_ref, device=dev,
+                                         reversible=True)}
+    for r in range(20):
+        for on in ((False, True) if r % 2 == 0 else (True, False)):
+            for path, fn in work.items():
+                (trace.enable if on else trace.disable)()
+                t0 = time.perf_counter()
+                fn()
+                runs[(path, on)].append((time.perf_counter() - t0) * 1e3)
+    trace.disable()
+    trace.reset()
+    for path in work:
+        off = statistics.median(runs[(path, False)])
+        on = statistics.median(runs[(path, True)])
+        emit('trace_overhead', path=path, runs=20, order='ABBA',
+             median_ms_disabled=off, median_ms_enabled=on,
+             enabled_over_disabled=on / off, card=card_id)
+
+    # 3. profiler windows on the warm paths; the video coders are made
+    # before them (encode_gpu_batch makes one, and its worker threads,
+    # each call: that call is timed outside the profiler)
+    emit('encode_gpu_batch_timing', frames=BURST, runs=5,
+         median_ms=host_ms(lambda: encode_gpu_batch(
+             frames[:BURST], device=dev, reversible=True)), card=card_id)
+    vd = VideoDecoder(device=dev, to_device=True)
+    ve = VideoEncoder(device=dev, reversible=True)
+
+    def vdec():
+        in_flight(vd, bursts_of(streams), vd.collect_on_device)
+        vd.drain_errors()
+
+    def venc():
+        for _ in range(3):
+            ve.submit(frames[:BURST])
+            ve.collect()
+
+    windows = (
+        ('decode_1x10', lambda: [decode_gpu(gray, device=dev)
+                                 for _ in range(10)], K2_NAME),
+        ('decode_burst8x3', lambda: [decode_gpu_batch([gray] * BURST,
+                                                      device=dev)
+                                     for _ in range(3)], K2_NAME),
+        ('encode_1x10', lambda: [encode_gpu(gray_ref, device=dev,
+                                            reversible=True)
+                                 for _ in range(10)], K3_NAME),
+        ('encode_burst8x3', venc, K3_NAME),
+        ('video_decoder_to_device_32', vdec, K2_NAME),
+        ('decode_3pass_1x10', lambda: [decode_gpu(gray3, device=dev)
+                                       for _ in range(10)], K4_NAME))
+    shutil.rmtree(TRACE_DIR, ignore_errors=True)
+    trace.enable()  # the stages show as host ranges in the traces
+    try:
+        for name, fn, kernel in windows:
+            fn()  # warm
+            trace.reset()
+            with trace.torch_trace(TRACE_DIR, device=dev, name=name), \
+                    gc_pauses() as gcs:
+                t0 = time.perf_counter()
+                with torch.profiler.record_function('window'):
+                    fn()
+                    torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            path = os.path.join(TRACE_DIR, name + '.json')
+            rep = window_report(path)
+            with open(path, 'rb') as f, gzip.open(path + '.gz', 'wb') as g:
+                shutil.copyfileobj(f, g)
+            os.remove(path)
+            names = rep.pop('names')
+            if not any(kernel in n for n in names):
+                raise AssertionError(f'{name}: {kernel} is not among the '
+                                     f'device events')
+            emit('trace_window', window=name, wall_ms=wall_ms,
+                 kernel_seen=kernel, trace=os.path.relpath(path, ROOT)
+                 + '.gz', card=card_id,
+                 gc_pauses={g: [sum(1 for h, _ in gcs if h == g),
+                                sum(ms for h, ms in gcs if h == g),
+                                max([ms for h, ms in gcs if h == g],
+                                    default=0.0)] for g in (0, 1, 2)},
+                 **rep)
+    finally:
+        trace.disable()
+        trace.reset()
+        vd.close()
+        ve.close()
+    launches = {**K.LAUNCHES, **E.LAUNCHES, **R.LAUNCHES}
+    for k in ('ht_cleanup_decode_raw', 'ht_cleanup_encode',
+              'ht_refine_decode_raw'):
+        if launches[k] == 0:
+            raise AssertionError(f'{k} was not launched in the trace phase')
+    for k, v in launches.items():
+        kernels[k]['launches'] += v
+    emit('trace_path_launches', **launches)
+
+
 def main() -> int:
     import argparse
     import numpy as np
@@ -1822,6 +2367,18 @@ def main() -> int:
                           R)
     video_timing(streams, gray_ref, dev, card_id)
     emit('video_phase_s', seconds=time.perf_counter() - t0)
+
+    # 13. the CLI apps, the stream receiver and tracing, each counted
+    t0 = time.perf_counter()
+    apps_phase(gray, gray_ref, gray3, rgb, dev, kernels, K, E, R, card_id)
+    emit('apps_phase_s', seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    stream_phase(streams, gray_ref, dev, kernels, K, R, card_id)
+    emit('stream_phase_s', seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    trace_phase(gray, gray_ref, gray3, streams, dev, kernels, K, E, R,
+                card_id)
+    emit('trace_phase_s', seconds=time.perf_counter() - t0)
 
     print(json.dumps({'kernels': list(kernels.values())}), flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -20,12 +20,21 @@ Video: ``VideoDecoder`` / ``decode_gpu_batch`` and ``VideoEncoder`` /
 ``encode_gpu_batch`` batch frames of one geometry into bursts, one
 device dispatch each, with host preparation, uploads and fetches on
 worker threads beside the card's work.
+
+``trace`` times the pipelines' stages under the JAX package's stage
+names and profiles the card (``trace.torch_trace``); ``apps`` holds the
+command-line coders (``python -m openjph_tpu_torch.apps.compress``,
+``.expand``, ``.stream_expand``), which run on the card.
 """
-from .core.message import OjphError, OjphWarning  # noqa: F401
+from .core.message import (  # noqa: F401
+    OjphError, OjphWarning, set_info_stream, set_warning_stream,
+    set_error_stream, configure_info, configure_warning,
+    configure_error, set_message_level)
 from .gpu.encode_pipeline import (GpuEncoder, VideoEncoder,  # noqa: F401
                                   encode_gpu, encode_gpu_batch)
 from .gpu.pipeline import (GpuDecoder, VideoDecoder,  # noqa: F401
                            decode_gpu, decode_gpu_batch)
+from .utils import trace  # noqa: F401
 
 
 def decode(data: bytes, device='cuda', skip_res: int = 0,

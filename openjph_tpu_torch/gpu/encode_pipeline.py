@@ -31,6 +31,8 @@ from ..codec import Encoder, build_encoder, normalize_planes
 from ..core.geometry import build_tile, build_tile_grid
 from ..core.markers import Dfs
 from ..core.t2 import CodedBlock, encode_precinct, precinct_iterator
+from ..utils import trace
+from . import block_encode_cuda
 from . import color as clr
 from . import dwt
 from .block_encode_cuda import encode_cleanup
@@ -208,8 +210,12 @@ class _EncRunner:
 def _make_enc_runner(plan: _EncPlan, nframes: int = 1,
                      device='cuda') -> _EncRunner:
     """The fused encode of ``nframes`` frames of ``plan``'s geometry on
-    ``device``."""
-    return _EncRunner(plan, nframes, resolve_device(device))
+    ``device``.  On a CUDA device the kernel is built here on first use,
+    not at its first launch."""
+    dev = resolve_device(device)
+    if dev.type == 'cuda':
+        block_encode_cuda.load()
+    return _EncRunner(plan, nframes, dev)
 
 
 def _fetch_outs(plan: _EncPlan, cats, aux, nframes: int):
@@ -220,7 +226,7 @@ def _fetch_outs(plan: _EncPlan, cats, aux, nframes: int):
     Returns (dense uint32 words, per group the pack_from_dense meta
     [nframes*n_pad, 6] and the non-zero flags [nframes, lanes])."""
     F = nframes
-    aux = aux.cpu().numpy()
+    aux = aux.cpu().numpy()  # waits for the runner
     pos = 0
     bits_all = []
     for g in plan.groups:
@@ -389,21 +395,31 @@ class GpuEncoder(Encoder):
             -> List[tuple]:
         geom = build_tile(self.hdr, idx, tr)
         nc = self.siz.num_comps
-        plan = self._build_enc_plan(geom)
-        runner = _make_enc_runner(plan, 1, self.device)
-        tplanes = [torch.from_numpy(
-            _narrow_tile_plane(self.siz, geom, c, planes[c])[None])
-            .to(self.device) for c in range(nc)]
-        cats, aux = runner(*tplanes)
+        with trace.stage('encode.plan'):
+            plan = self._build_enc_plan(geom)
+        with trace.stage('encode.compile'):
+            runner = _make_enc_runner(plan, 1, self.device)
+        tplanes = [_narrow_tile_plane(self.siz, geom, c, planes[c])[None]
+                   for c in range(nc)]
+        # the upload waits for the copy; the runner is only enqueued:
+        # its device time lands in encode.pack.fetch
+        with trace.stage('encode.device'):
+            with trace.stage('encode.upload'):
+                tplanes = [torch.from_numpy(t).to(self.device)
+                           for t in tplanes]
+            cats, aux = runner(*tplanes)
         coded = _empty_coded(geom, nc)
-        self._consume_outs(plan, cats, aux, [coded])
-        return _tile_packets(self, geom, coded)
+        with trace.stage('encode.segment_pack'):
+            self._consume_outs(plan, cats, aux, [coded])
+        with trace.stage('encode.t2'):
+            return _tile_packets(self, geom, coded)
 
     def _consume_outs(self, plan, cats, aux, codeds):
         """Fetch a runner's outputs and fill each frame's coded-block
         structure (``codeds``, one per frame of the runner)."""
-        self._stuff(plan, *_fetch_outs(plan, cats, aux, len(codeds)),
-                    codeds)
+        with trace.stage('encode.pack.fetch'):
+            outs = _fetch_outs(plan, cats, aux, len(codeds))
+        self._stuff(plan, *outs, codeds)
 
     def _stuff(self, plan, dense, metas, nz_all, codeds):
         """Host byte stuffing (pack_from_dense) of every frame's lanes
@@ -414,11 +430,13 @@ class GpuEncoder(Encoder):
             stride = int(meta[:, 1::2].sum(axis=1).max()) // 7 + 64
             # every frame's real lanes (not the padding) in one call
             real = meta.reshape(len(codeds), g.n_pad, 6)[:, :L]
-            out, lens = native.pack_from_dense(dense, real.reshape(-1, 6),
-                                               out_stride=stride)
-            for f, coded in enumerate(codeds):
-                self._fill_coded(plan, g, coded, out[f * L:(f + 1) * L],
-                                 lens[f * L:(f + 1) * L], nz[f])
+            with trace.stage('encode.pack.stuff'):
+                out, lens = native.pack_from_dense(
+                    dense, real.reshape(-1, 6), out_stride=stride)
+            with trace.stage('encode.pack.fill'):
+                for f, coded in enumerate(codeds):
+                    self._fill_coded(plan, g, coded, out[f * L:(f + 1) * L],
+                                     lens[f * L:(f + 1) * L], nz[f])
 
     def _fill_coded(self, plan, g, coded, out, lens, nz):
         for lane, (bid, bi, h_t) in enumerate(g.lanes):
@@ -585,13 +603,17 @@ class VideoEncoder:
             return [enc.encode(normalize_planes(f)) for f in frames]
         self.fused_bursts += 1
         F = len(frames)
-        runner = _ENC_RUNNERS.get((plan.key, F, self.device),
-                                  lambda: _make_enc_runner(plan, F,
-                                                           self.device))
-        planes = [normalize_planes(f) for f in frames]
-        stacks = [np.stack([_narrow_tile_plane(enc.siz, self._geom, c, p[c])
-                            for p in planes])
-                  for c in range(enc.siz.num_comps)]
+
+        def make():
+            with trace.stage('encode.compile'):
+                return _make_enc_runner(plan, F, self.device)
+
+        runner = _ENC_RUNNERS.get((plan.key, F, self.device), make)
+        with trace.stage('encode.host_prep'):
+            planes = [normalize_planes(f) for f in frames]
+            stacks = [np.stack([_narrow_tile_plane(enc.siz, self._geom, c,
+                                                   p[c]) for p in planes])
+                      for c in range(enc.siz.num_comps)]
         cfut = self._io_pool.submit(self._io, runner, stacks)
         return self._t2_pool.submit(self._t2, cfut)
 
@@ -612,16 +634,23 @@ class VideoEncoder:
         codeds = [_empty_coded(self._geom, len(stacks))
                   for _ in range(runner.F)]
         with torch.cuda.stream(stream):
-            planes = self._stager.upload((runner.plan.key, runner.F),
-                                         stacks, stream)
-            cats, aux = runner(*planes)
-            self._enc._consume_outs(runner.plan, cats, aux, codeds)
+            with trace.stage('encode.device'):
+                with trace.stage('encode.dev.upload_exec'):
+                    planes = self._stager.upload(
+                        (runner.plan.key, runner.F), stacks, stream)
+                    cats, aux = runner(*planes)
+                with trace.stage('encode.dev.aux_fetch'):
+                    aux = aux.cpu()
+            with trace.stage('encode.segment_pack'):
+                self._enc._consume_outs(runner.plan, cats, aux, codeds)
         return codeds
 
     def _t2(self, cfut) -> List[bytes]:
         enc, geom = self._enc, self._geom
-        return [enc.assemble([_tile_packets(enc, geom, coded)])
-                for coded in cfut.result()]
+        codeds = cfut.result()
+        with trace.stage('encode.t2'):
+            return [enc.assemble([_tile_packets(enc, geom, coded)])
+                    for coded in codeds]
 
 
 def encode_gpu_batch(frames, device='cuda', **kwargs) -> List[bytes]:

@@ -33,6 +33,8 @@ from .. import native
 from ..codec import Decoder
 from ..core.message import warn as _wrn
 from ..core.markers import Dfs
+from ..utils import trace
+from . import block_decode_cuda, block_refine_cuda
 from . import color as clr
 from . import dwt
 from .bitprep import prep_cleanup_streams
@@ -639,8 +641,14 @@ def _make_runner(plan: _Plan, nframes: int = 1, device='cuda',
                  raw: bool = True) -> _Runner:
     """The fused decode of ``nframes`` frames of ``plan``'s geometry on
     ``device``; ``raw`` selects the raw-bytes (True) or dense-words
-    (False) input layout."""
-    return _Runner(plan, nframes, resolve_device(device), raw)
+    (False) input layout.  On a CUDA device the kernels it launches are
+    built here on first use, not at their first launch."""
+    dev = resolve_device(device)
+    if dev.type == 'cuda':
+        block_decode_cuda.load()
+        if plan.has_refine:
+            block_refine_cuda.load()
+    return _Runner(plan, nframes, dev, raw)
 
 
 # ---------------------------------------------------------------------------
@@ -880,7 +888,9 @@ class GpuDecoder(Decoder):
     def decode(self) -> List[np.ndarray]:
         if self._any_wide_band():
             raise NotImplementedError(_ROADMAP_WIDE)
-        return self._decode_fast(_build_plan(self))
+        with trace.stage('decode.plan'):
+            plan = _build_plan(self)
+        return self._decode_fast(plan)
 
     def _any_wide_band(self) -> bool:
         for st in self.tiles:
@@ -959,13 +969,20 @@ class GpuDecoder(Decoder):
 
     def _decode_fast(self, plan: _Plan) -> List[np.ndarray]:
         pairs = [(self, plan)]
-        runner = _make_runner(plan, 1, self.device, self.raw)
-        errs, outs = runner(*upload(_pack(pairs, self.raw), self.device))
-        nerr = int(errs.sum())
-        _zeroed_blocks(plan.broken, nerr, self.resilient)
+        with trace.stage('decode.host_prep'):
+            args = _pack(pairs, self.raw)
+        with trace.stage('decode.compile'):
+            runner = _make_runner(plan, 1, self.device, self.raw)
+        with trace.stage('decode.device'):
+            with trace.stage('decode.upload'):
+                dargs = upload(args, self.device)
+            errs, outs = runner(*dargs)
+            nerr = int(errs.sum())
+            _zeroed_blocks(plan.broken, nerr, self.resilient)
+            host = [[p.cpu().numpy() for p in t] for t in outs]
         self.zeroed = (plan.broken, nerr)
-        return _assemble_burst(
-            [self], [[p.cpu().numpy() for p in t] for t in outs])[0]
+        with trace.stage('decode.assemble'):
+            return _assemble_burst([self], host)[0]
 
 
 def _pack(pairs, raw: bool) -> tuple:
@@ -1041,8 +1058,11 @@ _RUNNERS = _Cache(32)
 
 def _burst_runner(plan: _Plan, nframes: int, device, raw: bool) -> _Runner:
     """The cached runner of ``nframes`` frames of ``plan``'s key."""
-    return _RUNNERS.get((plan.key, nframes, raw, device),
-                        lambda: _make_runner(plan, nframes, device, raw))
+    def make():
+        with trace.stage('decode.compile'):
+            return _make_runner(plan, nframes, device, raw)
+
+    return _RUNNERS.get((plan.key, nframes, raw, device), make)
 
 
 def _geometry_key(key: tuple) -> tuple:
@@ -1162,19 +1182,22 @@ class VideoDecoder:
 
     @torch.inference_mode()
     def _prep(self, streams):
-        decs = _decoders(streams, self.device, self.raw, self.resilient,
-                         self.skip_res)
-        plans = _burst_plans(decs)
+        with trace.stage('decode.host_prep'):
+            decs = _decoders(streams, self.device, self.raw, self.resilient,
+                             self.skip_res)
+            plans = _burst_plans(decs)
+            if plans is not None:
+                # int32 views of the buffers, as upload() makes them
+                args = tuple(np.ascontiguousarray(a).view(np.int32)
+                             for a in _pack(list(zip(decs, plans)),
+                                            self.raw))
         if plans is None:
             self.fallback_bursts += 1
             return decs, None, [d.decode() for d in decs]
         self.fused_bursts += 1
-        pairs = list(zip(decs, plans))
-        # int32 views of the buffers, as upload() makes them
-        args = tuple(np.ascontiguousarray(a).view(np.int32)
-                     for a in _pack(pairs, self.raw))
         runner = _burst_runner(plans[0], len(decs), self.device, self.raw)
-        run = self._dispatch(runner, args)
+        with trace.stage('decode.dispatch'):
+            run = self._dispatch(runner, args)
         broken = sum(p.broken for p in plans)
         if self.to_device:
             return decs, broken, run
@@ -1219,10 +1242,13 @@ class VideoDecoder:
             self.zeroed = tuple(sum(z) for z in zip(*(d.zeroed
                                                       for d in decs)))
             return fut
-        nerr, outs = self._fetch(fut) if self.to_device else fut.result()
+        with trace.stage('decode.fetch'):
+            nerr, outs = (self._fetch(fut) if self.to_device
+                          else fut.result())
         self.zeroed = (broken, nerr)
         _zeroed_blocks(broken, nerr, self.resilient)
-        return _assemble_burst(decs, outs)
+        with trace.stage('decode.assemble'):
+            return _assemble_burst(decs, outs)
 
     def collect_on_device(self):
         """The oldest burst's frames left on the device (needs
@@ -1288,7 +1314,8 @@ def decode_gpu_batch(streams: List[bytes], device='cuda',
     results: List[list] = [None] * len(decs)
     by_geom: Dict[tuple, list] = {}
     for i, d in enumerate(decs):
-        plan = _plan_frame(d)
+        with trace.stage('decode.plan'):
+            plan = _plan_frame(d)
         by_geom.setdefault(_geometry_key(plan.key), []).append((i, d, plan))
     for items in by_geom.values():
         pos = 0
@@ -1298,13 +1325,18 @@ def decode_gpu_batch(streams: List[bytes], device='cuda',
             pos += F
             cdecs = [d for _, d, _ in chunk]
             plans = _merge_words([p for _, _, p in chunk])
-            pairs = list(zip(cdecs, plans))
+            with trace.stage('decode.host_prep'):
+                args = _pack(list(zip(cdecs, plans)), raw)
             runner = _burst_runner(plans[0], F, dev, raw)
-            errs, outs = runner(*upload(_pack(pairs, raw), dev))
-            _zeroed_blocks(sum(p.broken for p in plans), int(errs.sum()),
-                           resilient)
-            frames = _assemble_burst(
-                cdecs, [[c.cpu().numpy() for c in t] for t in outs])
+            with trace.stage('decode.device'):
+                with trace.stage('decode.upload'):
+                    dargs = upload(args, dev)
+                errs, outs = runner(*dargs)
+                _zeroed_blocks(sum(p.broken for p in plans),
+                               int(errs.sum()), resilient)
+                host = [[c.cpu().numpy() for c in t] for t in outs]
+            with trace.stage('decode.assemble'):
+                frames = _assemble_burst(cdecs, host)
             for (i, _, _), f in zip(chunk, frames):
                 results[i] = f
     return results
