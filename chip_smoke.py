@@ -33,7 +33,16 @@ and a frame with a dropped packet under resilient=True); and tracing: the
 stage timers on every path, their cost, and torch.profiler windows (one
 frame and bursts, decode and encode, 32 frames through VideoDecoder, the
 3-pass frame) with the card's busy share, its top ops and its longest
-idle gaps, the traces written gzipped under traces/.  It
+idle gaps, the traces written gzipped under traces/; and mosaics and
+scale-out: the committed multi-tile fixtures through MosaicDecoder (both
+runner modes, the 3-pass one through K4) and MosaicEncoder against their
+sources and the JAX package's streams and fused 9/7 decode,
+decode_blocks_sharded against the C++ scalar decoder, BASELINE config 5
+as an 8192x8192 mosaic (64 tiles of 1024x1024, every tile lossless, the
+stream equal to encode_gpu of the whole image) and a 32768x32768 one
+(1,024 tiles, streamed to a file, decoded from an mmap of it) with their
+peak host RSS and device memory, the row-sharded DWT and the frame
+fan-out in two processes that share the card over gloo.  It
 times each stage (device stages with CUDA events, host stages with the
 host clock), and prints one JSON line per result.
 
@@ -44,6 +53,9 @@ host clock), and prints one JSON line per result.
                                                       # kernel
     python3 chip_smoke.py --against-refine OTHER.cu   # ... of the
                                                       # refinement kernel
+    python3 chip_smoke.py --mosaic-100k               # also the
+                                                      # 100000x100000
+                                                      # mosaic (9,604 tiles)
 
 Exits non-zero, printing no result, when no CUDA device is present or
 any phase fails.  The last line of standard output is
@@ -52,6 +64,8 @@ any phase fails.  The last line of standard output is
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import gc
 import json
 import os
 import statistics
@@ -2099,6 +2113,518 @@ def trace_phase(gray, gray_ref, gray3, streams, dev, kernels, K, E, R,
     emit('trace_path_launches', **launches)
 
 
+MOSAIC_97_FUSED = 'mosaic_gray_128x128_97_t64_fused.npz'
+# the mosaic_scale phase: 1024x1024 tiles, gray 8-bit, lossless 5/3, 2
+# levels, sub-batches of 32 tiles (BASELINE.json config 5, cut to 8K, 32K
+# and, with --mosaic-100k, 100K)
+MOSAIC_TILE = 1024
+MOSAIC_BATCH = 32
+MOSAIC_SIZES = (8192, 32768)  # the in-memory and the streamed run
+MOSAIC_100K = 100000
+MOSAIC_CHECKED = 64  # seeded tiles checked of the 32K and 100K mosaics
+
+
+def cleanup_blocks(dev):
+    """The full-size 64x64 codeblocks of a seeded 256x256 5/3 stream (the
+    port's card encode, parsed in object mode), each with the C++ scalar
+    decoder's output."""
+    import numpy as np
+    from openjph_tpu_torch import native
+    from openjph_tpu_torch.codec import Decoder
+    from openjph_tpu_torch.gpu.encode_pipeline import encode_gpu
+    img = np.random.RandomState(1234).randint(0, 256, (256, 256)) \
+        .astype(np.int32)
+    dec = Decoder(encode_gpu(img, device=dev, reversible=True,
+                             num_decomps=2))
+    out = []
+    for c, comp in enumerate(dec.tiles[0].geom.comps):
+        for r, res in enumerate(comp.resolutions):
+            for b in range(4):
+                sb = res.bands[b]
+                if sb is None or sb.empty:
+                    continue
+                coded = dec.tiles[0].coded[c][r][b]
+                for g in sb.blocks:
+                    cb = coded[g.cb_y * sb.num_cb_x + g.cb_x]
+                    if cb and cb.data and (g.rect.w, g.rect.h) == (64, 64):
+                        d = bytes(cb.data)
+                        lc = cb.pass_length[0]
+                        out.append((d, cb.missing_msbs, lc,
+                                    native.decode_codeblock(
+                                        d, cb.missing_msbs, 1, lc, 0, 64,
+                                        64)))
+    return out
+
+
+def mosaic_phase(dev, kernels, K, E, R, card_id):
+    """The committed mosaic fixtures through MosaicDecoder (K2, and K1 in
+    the dense runner mode; K4 on the 3-pass one) against their sources,
+    the CPU decode and the JAX package's fused 9/7 decode, re-encoded
+    through MosaicEncoder (K3) byte-equal to the JAX package's streams;
+    the 3-pass re-encode refused; decode_blocks_sharded (K1) on the 64x64
+    blocks of a 256x256 stream against the C++ scalar decoder.
+    Counted."""
+    import numpy as np
+    import torch
+    from openjph_tpu_torch.gpu.pipeline import decode_gpu
+    from openjph_tpu_torch.gpu.bitprep import prep_cleanup_streams
+    from openjph_tpu_torch.parallel import (MosaicDecoder, MosaicEncoder,
+                                            decode_blocks_sharded, make_mesh)
+    from openjph_tpu_torch.parallel._testing import (
+        MOSAIC_FIXTURES, mosaic_fixture_sources)
+    t_phase = time.perf_counter()
+    # the committed fixtures' sources, made from the seeds that made them
+    sources = mosaic_fixture_sources()
+    streams = {n: open(os.path.join(TESTDATA, n + '.j2c'), 'rb').read()
+               for n in MOSAIC_FIXTURES}
+    with np.load(os.path.join(TESTDATA, MOSAIC_97_FUSED)) as z:
+        fused97 = z['plane']
+    p3_name = 'mosaic_gray_128x128_rev_p3_t64'
+    p3_cpu = decode_gpu(streams[p3_name], device='cpu', raw=False)
+    blocks = cleanup_blocks(dev)
+    mesh = make_mesh()
+    K.reset_launches()
+    E.reset_launches()
+    R.reset_launches()
+    for name in MOSAIC_FIXTURES:
+        planes, kw = sources[name]
+        for raw in (True, False):
+            md = MosaicDecoder(streams[name], mesh, raw=raw)
+            got = md.decode()
+            if name == 'mosaic_gray_128x128_97_t64':
+                diff = int(np.abs(got[0].astype(np.int64) - fused97).max())
+                if diff > 1:
+                    raise AssertionError(f'{name} differs from the JAX '
+                                         f'fused decode by {diff}')
+                held = dict(max_abs_diff_vs_jax_fused=diff, tolerance=1)
+            else:
+                want = ([np.clip(p, 0, 255) for p in planes]
+                        if name == p3_name else planes)
+                if len(got) != len(want) or not all(
+                        np.array_equal(a, b) for a, b in zip(got, want)):
+                    raise AssertionError(f'{name} differs from its source '
+                                         f'(raw={raw})')
+                if name == p3_name and not np.array_equal(got[0],
+                                                          p3_cpu[0]):
+                    raise AssertionError(f'{name} differs from the CPU '
+                                         f'decode (raw={raw})')
+                held = dict(equal_to_source=True)
+            emit('mosaic_decode', stream=name, raw=raw,
+                 classes=[len(c['tiles']) for c in md.classes],
+                 refine=any(c['top'].has_refine for c in md.classes),
+                 **held)
+        me = MosaicEncoder(mesh, **kw)
+        if kw.get('ht_passes', 1) > 1:
+            try:
+                me.encode(planes)
+            except NotImplementedError as e:
+                emit('mosaic_encode', stream=name, refused=str(e))
+                continue
+            raise AssertionError('MosaicEncoder took a multi-pass encode')
+        if me.encode(planes) != streams[name]:
+            raise AssertionError(f'{name}: MosaicEncoder differs from the '
+                                 f'JAX package\'s stream')
+        emit('mosaic_encode', stream=name, bytes=len(streams[name]),
+             equal_to_jax_stream=True)
+    # decode_blocks_sharded: the cleanup decoder's dense readers (K1)
+    datas = [b[0] for b in blocks]
+    lcups = np.array([b[2] for b in blocks], np.int64)
+    miss = np.array([b[1] for b in blocks], np.int32)
+    scups = np.array([(d[lc - 1] << 4) + (d[lc - 2] & 0xF)
+                      for d, lc in zip(datas, lcups)], np.int64)
+    dec, err = decode_blocks_sharded(
+        mesh, prep_cleanup_streams(datas, lcups, scups), 30 - miss, 64, 64)
+    dec = dec.cpu().numpy().view(np.uint32)
+    if bool(err.any()) or not all(np.array_equal(dec[i], b[3])
+                                  for i, b in enumerate(blocks)):
+        raise AssertionError('decode_blocks_sharded differs from the C++ '
+                             'scalar decoder')
+    emit('decode_blocks_sharded', blocks=len(blocks), mesh=mesh.size,
+         equal_to_scalar_decoder=True)
+    torch.cuda.synchronize()
+    launches = {**K.LAUNCHES, **R.LAUNCHES, **E.LAUNCHES}
+    for k, v in launches.items():
+        if v == 0:
+            raise AssertionError(f'{k} was not launched in the mosaic phase')
+        kernels[k]['launches'] += v
+    emit('mosaic_path_launches', **launches)
+    emit('mosaic_phase_s', seconds=time.perf_counter() - t_phase,
+         card=card_id)
+
+
+def host_rss_mb():
+    """(RssAnon, VmRSS) of this process in MB; RssAnon None where the
+    kernel does not report it."""
+    anon, total = None, 0.0
+    with open('/proc/self/status') as f:
+        for line in f:
+            if line.startswith('VmRSS:'):
+                total = int(line.split()[1]) / 1024.0
+            elif line.startswith('RssAnon:'):
+                anon = int(line.split()[1]) / 1024.0
+    return anon, total
+
+
+def mapped_rss_mb(path):
+    """Resident MB of this process's mappings of the file ``path``
+    (/proc/self/smaps), 0 when it has none; None where smaps is not
+    readable."""
+    try:
+        total, inside = 0.0, False
+        with open('/proc/self/smaps') as f:
+            for line in f:
+                head = line.split(None, 1)[0]
+                if '-' in head and not head.endswith(':'):
+                    inside = line.rstrip().endswith(path)
+                elif inside and head == 'Rss:':
+                    total += int(line.split()[1]) / 1024.0
+        return total
+    except OSError:
+        return None
+
+
+@contextlib.contextmanager
+def rss_peak(path=None):
+    """Samples (RssAnon, VmRSS) every 0.2 s while open, and VmRSS less
+    the resident pages of the mapped file ``path``; yields a dict that
+    holds, on exit, the peak deltas over the values at entry (MB), and
+    whose ``mark(name)`` records VmRSS less those pages at that moment
+    under ``marks``."""
+    anon0, tot0 = host_rss_mb()
+    peak = [anon0, tot0, 0.0]
+    stop = threading.Event()
+
+    def sampler():
+        while not stop.is_set():
+            a, t = host_rss_mb()
+            if a is not None:
+                peak[0] = max(peak[0], a)
+            peak[1] = max(peak[1], t)
+            m = mapped_rss_mb(path) if path else 0.0
+            peak[2] = None if m is None or peak[2] is None else max(
+                peak[2], t - tot0 - m)
+            stop.wait(0.2)
+
+    def mark(name):
+        """VmRSS less the stream's pages now, over the value at entry."""
+        t = host_rss_mb()[1]
+        m = mapped_rss_mb(path) if path else 0.0
+        out['marks'][name] = None if m is None else t - tot0 - m
+
+    th = threading.Thread(target=sampler, daemon=True)
+    th.start()
+    out = {'marks': {}, 'mark': mark}
+    try:
+        yield out
+    finally:
+        stop.set()
+        th.join(timeout=2)
+        a, t = host_rss_mb()
+        out['anon_delta_mb'] = (None if a is None
+                                else max(peak[0], a) - anon0)
+        out['rss_delta_mb'] = max(peak[1], t) - tot0
+        out['rss_less_stream_delta_mb'] = peak[2]
+
+
+def trim_host_heap() -> bool:
+    """Collect garbage and hand the C allocator's free memory back to the
+    system (glibc ``malloc_trim``); False where there is no such call."""
+    gc.collect()
+    try:
+        ctypes.CDLL('libc.so.6').malloc_trim(0)
+    except (OSError, AttributeError):
+        return False
+    return True
+
+
+def tile_content(y0, x0, h, w):
+    """The 8K mosaic's per-tile pixels (tests/test_mosaic_scale.py:29-35),
+    made on demand."""
+    import numpy as np
+    yy = np.arange(y0, y0 + h, dtype=np.int64)[:, None]
+    xx = np.arange(x0, x0 + w, dtype=np.int64)[None, :]
+    return ((yy * 31 + xx * 17 + ((yy * xx) >> 6)) % 256).astype(np.int32)
+
+
+def smooth_tile(y0, x0, h, w):
+    """The 32K and 100K mosaics' low-entropy pixels
+    (tests/test_mosaic_scale.py:160-169)."""
+    import numpy as np
+    yy = np.arange(y0, y0 + h, dtype=np.int64)[:, None]
+    xx = np.arange(x0, x0 + w, dtype=np.int64)[None, :]
+    return (((yy * 5 + xx * 3) >> 6) % 256).astype(np.int32)
+
+
+def mosaic_run(n_img, content, dev, check, path=None):
+    """One mosaic of n_img x n_img, MOSAIC_TILE tiles, through
+    encode_chunked (to bytes, or streamed to the file ``path``) and
+    MosaicDecoder.decode_to (from the bytes, or an mmap of the file), the
+    tiles in ``check`` (None: all) held equal to ``content``.  Peak host
+    RSS and device memory are reset before and read after: the host heap
+    is trimmed first, and the device peak is counted over what was
+    allocated at the reset.  Returns (the
+    stream bytes or None, figures)."""
+    import mmap
+    import torch
+    from openjph_tpu_torch import trace
+    from openjph_tpu_torch.parallel import MosaicDecoder, MosaicEncoder
+    fig = {'image': f'{n_img}x{n_img}', 'tile': MOSAIC_TILE,
+           'batch_tiles': MOSAIC_BATCH}
+
+    read_s = [0.0]
+    ntiles = (-(-n_img // MOSAIC_TILE)) ** 2
+    # VmRSS less the stream's pages at each eighth of the tiles, each
+    # way, and after the decode: where the host memory goes
+    eighth = max(ntiles // 8, 1)
+    done = [0, 0]
+
+    def reader(ti, geom):
+        t0 = time.perf_counter()
+        r = geom.comps[0].rect
+        tile = [content(r.y0, r.x0, r.h, r.w)]
+        read_s[0] += time.perf_counter() - t0
+        done[0] += 1
+        if done[0] % eighth == 0:
+            rss['mark'](f'encode_{done[0]}')
+        return tile
+
+    torch.cuda.synchronize()
+    # what the allocator kept of earlier phases' freed memory goes back
+    # first, so that each run's RSS delta starts from the same state
+    trim_host_heap()
+    torch.cuda.reset_peak_memory_stats(dev)
+    # what earlier phases left allocated (cached runners, tensors): the
+    # peak counts it too, so the mosaic's own peak is the excess over it
+    base_device = torch.cuda.memory_allocated(dev)
+    trace.reset()
+    trace.enable()  # the mosaic.* stages; ~1% of a frame (PERF.md)
+    with rss_peak(path) as rss:
+        me = MosaicEncoder(batch_tiles=MOSAIC_BATCH, reversible=True,
+                           num_decomps=2,
+                           tile_size=(MOSAIC_TILE, MOSAIC_TILE))
+        t0 = time.perf_counter()
+        if path is None:
+            stream = me.encode_chunked(reader, (n_img, n_img), num_comps=1)
+            size = len(stream)
+        else:
+            stream = None
+            with open(path, 'wb') as f:
+                me.encode_chunked(reader, (n_img, n_img), num_comps=1, out=f)
+            size = os.path.getsize(path)
+        fig['encode_s'] = time.perf_counter() - t0
+        rss['mark']('encoded')
+        fig['tile_reader_s'] = read_s[0]  # the source, in encode_s
+        fh = mm = None
+        if path is not None:
+            fh = open(path, 'rb')
+            mm = mmap.mmap(fh.fileno(), 0, access=mmap.ACCESS_READ)
+        try:
+            t0 = time.perf_counter()
+            md = MosaicDecoder(stream if mm is None else mm,
+                               batch_tiles=MOSAIC_BATCH)
+            # every tile's Tier-2 and plan, for its class
+            fig['decoder_init_s'] = time.perf_counter() - t0
+            rss['mark']('decoder_built')
+            seen = [0, 0]
+
+            def sink(ti, planes):
+                seen[0] += 1
+                if seen[0] % eighth == 0:
+                    rss['mark'](f'decode_{seen[0]}')
+                if check is None or ti in check:
+                    r = md.dec.tile_rects[ti]
+                    if not (planes[0] == content(r.y0, r.x0, r.h,
+                                                 r.w)).all():
+                        raise AssertionError(f'{fig["image"]} tile {ti} '
+                                             f'differs from its source')
+                    seen[1] += 1
+
+            md.decode_to(sink)
+            torch.cuda.synchronize()
+            fig['decode_s'] = time.perf_counter() - t0
+            fig['classes'] = [len(c['tiles']) for c in md.classes]
+            del md
+            # what the allocator keeps of freed memory
+            gc.collect()
+            rss['mark']('after_gc')
+            if trim_host_heap():
+                rss['mark']('after_malloc_trim')
+        finally:
+            trace.disable()
+            if mm is not None:
+                mm.close()
+                fh.close()
+    fig['stages_s'] = {k: v['seconds'] for k, v in trace.get_stats().items()}
+    trace.reset()
+    if seen[0] != ntiles:
+        raise AssertionError(f'{fig["image"]}: {seen[0]} of {ntiles} tiles '
+                             f'reached the sink')
+    fig.update(tiles=ntiles, tiles_checked=seen[1], stream_bytes=size,
+               stream_on_disk=path is not None,
+               encode_tiles_per_s=ntiles / fig['encode_s'],
+               decode_tiles_per_s=ntiles / fig['decode_s'],
+               encode_mp_per_s=n_img * n_img / 1e6 / fig['encode_s'],
+               decode_mp_per_s=n_img * n_img / 1e6 / fig['decode_s'],
+               device_allocated_before_mb=base_device / 2**20,
+               peak_device_mb=(torch.cuda.max_memory_allocated(dev)
+                               - base_device) / 2**20,
+               peak_host_rss_delta_mb=rss['rss_delta_mb'],
+               peak_host_anon_delta_mb=rss['anon_delta_mb'],
+               peak_host_rss_less_stream_delta_mb=rss[
+                   'rss_less_stream_delta_mb'],
+               host_rss_less_stream_marks_mb=rss['marks'])
+    return stream, fig
+
+
+def mosaic_scale_phase(dev, kernels, K, E, R, card_id, with_100k=False):
+    """BASELINE config 5 on the card: an 8192x8192 mosaic (64 tiles)
+    through encode_chunked and decode_to, every tile lossless and the
+    stream byte-equal to encode_gpu of the whole image; a 32768x32768
+    one (1,024 tiles, one gigapixel) streamed to a file and decoded from
+    an mmap of it, the first, the last and MOSAIC_CHECKED seeded tiles
+    lossless, the peak host RSS delta under 2 GB and the peak device
+    memory over what was allocated before within 1.25x the 8K run's; with
+    ``with_100k``, a 100000x100000 one (9,604 tiles) the same way, its
+    peak host RSS less the stream's pages within 1.35x the 32K run's.
+    Counted."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from openjph_tpu_torch.gpu.encode_pipeline import encode_gpu
+    t_phase = time.perf_counter()
+    K.reset_launches()
+    E.reset_launches()
+    R.reset_launches()
+    n8, n32 = MOSAIC_SIZES
+    stream8, fig8 = mosaic_run(n8, tile_content, dev, None)
+    emit('mosaic_scale', card=card_id, **fig8)
+    launches = {**K.LAUNCHES, **E.LAUNCHES}
+    # the whole image through encode_gpu, outside the measured window and
+    # the counts
+    t0 = time.perf_counter()
+    whole = np.empty((n8, n8), np.uint8)
+    for y in range(0, n8, MOSAIC_TILE):
+        whole[y:y + MOSAIC_TILE] = tile_content(y, 0, MOSAIC_TILE, n8)
+    ref = encode_gpu(whole, device=dev, reversible=True, num_decomps=2,
+                     tile_size=(MOSAIC_TILE, MOSAIC_TILE))
+    if ref != stream8:
+        raise AssertionError('the 8K mosaic stream differs from encode_gpu '
+                             'of the whole image')
+    emit('mosaic_8k_vs_encode_gpu', equal=True, bytes=len(ref),
+         encode_gpu_s=time.perf_counter() - t0)
+    del whole, ref, stream8
+    K.reset_launches()
+    E.reset_launches()
+    tmp = tempfile.mkdtemp(prefix='ojph_mosaic_')
+    try:
+        for n_img in (n32, MOSAIC_100K) if with_100k else (n32,):
+            ntiles = (-(-n_img // MOSAIC_TILE)) ** 2
+            rng = np.random.RandomState(9)
+            check = set(rng.choice(ntiles, MOSAIC_CHECKED,
+                                   replace=False).tolist()) | {0, ntiles - 1}
+            before = {**K.LAUNCHES, **E.LAUNCHES}
+            _, fig = mosaic_run(n_img, smooth_tile, dev, check,
+                                path=os.path.join(tmp, f'm{n_img}.j2c'))
+            fig['device_over_8k'] = fig['peak_device_mb'] / \
+                fig8['peak_device_mb']
+            for k, v in {**K.LAUNCHES, **E.LAUNCHES}.items():
+                fig.setdefault('launches', {})[k] = v - before[k]
+            less_stream = fig['peak_host_rss_less_stream_delta_mb']
+            if n_img != n32 and less_stream is not None:
+                # the flat-memory property: 9.4x the tiles of the 32K
+                # run, within the JAX package's 1.35x (without its slack)
+                fig['host_rss_less_stream_over_32k'] = \
+                    less_stream / less_stream32
+            emit('mosaic_scale', card=card_id, **fig)
+            if fig.get('host_rss_less_stream_over_32k', 0) > 1.35:
+                raise AssertionError(
+                    f'{fig["image"]}: peak host RSS less the stream '
+                    f'{less_stream} MB, '
+                    f'{fig["host_rss_less_stream_over_32k"]}x the 32K '
+                    f'run\'s')
+            less_stream32 = less_stream
+            # the mmap'd stream's pages count in VmRSS: the 2 GB hold is
+            # the 1 GP run's (a 1.3 GB stream alone would break it at 100K)
+            if n_img == n32 and fig['peak_host_rss_delta_mb'] >= 2048:
+                raise AssertionError(f'{fig["image"]}: peak host RSS delta '
+                                     f'{fig["peak_host_rss_delta_mb"]} MB')
+            if fig['device_over_8k'] > 1.25:
+                raise AssertionError(f'{fig["image"]}: peak device memory '
+                                     f'{fig["device_over_8k"]}x the 8K '
+                                     f'run\'s')
+            os.remove(os.path.join(tmp, f'm{n_img}.j2c'))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {k: v + launches[k]
+                for k, v in {**K.LAUNCHES, **E.LAUNCHES}.items()}
+    for k in ('ht_cleanup_decode_raw', 'ht_cleanup_encode'):
+        if launches[k] == 0:
+            raise AssertionError(f'{k} was not launched in the mosaic_scale '
+                                 f'phase')
+    for k, v in launches.items():
+        kernels[k]['launches'] += v
+    emit('mosaic_scale_path_launches', **launches)
+    emit('mosaic_scale_phase_s', seconds=time.perf_counter() - t_phase,
+         card=card_id)
+
+
+def run_ranks(module: str, n: int, args, timeout: int = 300):
+    """n processes of ``python -m module`` as gloo ranks sharing cuda:0 on
+    a free localhost port; returns their outputs.  Every process is
+    waited for, and killed at the time limit."""
+    from openjph_tpu_torch.parallel._testing import start_ranks, wait_ranks
+    return wait_ranks(start_ranks(module, n, ['--backend', 'gloo', *args],
+                                  device='cuda'), timeout=timeout)
+
+
+def rank_result(out: str, tag: str) -> dict:
+    line = next((ln for ln in out.splitlines() if ln.startswith(tag)), None)
+    if line is None:
+        raise AssertionError(f'no "{tag}" line in:\n{out[-4000:]}')
+    return json.loads(line[len(tag):])
+
+
+def parallel_phase(card_id):
+    """The row-sharded DWT in two processes sharing cuda:0 over gloo (halo
+    rows staged through host memory): 5/3 and 9/7, one analysis and one
+    synthesis level of a seeded 2048x1080 plane split in rows, each
+    process's rows equal to the unsharded gpu/dwt.py on the card.  It
+    checks the exchange; it does not time it."""
+    t0 = time.perf_counter()
+    outs = run_ranks('openjph_tpu_torch.parallel.dwt_sharded', 2,
+                     ['--size', '2048x1080', '--seed', '3'])
+    res = [rank_result(o, 'dwt_sharded OK ') for o in outs]
+    emit('parallel_dwt', processes=2, backend='gloo', ranks=res,
+         wall_s=time.perf_counter() - t0, card=card_id)
+
+
+def multihost_phase(kernels, card_id):
+    """decode_frames / encode_frames in two processes sharing cuda:0 over
+    gloo: the 8 video frames of the headline stream (the gray frame
+    rolled 37*k columns) encoded and decoded spread across them, each
+    gathered burst byte-identical to encode_gpu_batch and bit-exact with
+    decode_gpu_batch of one process, and equal to the frames.  Counted:
+    each process reports the launches of its spread coding."""
+    t0 = time.perf_counter()
+    outs = run_ranks('openjph_tpu_torch.parallel.multihost', 2,
+                     ['--frames', str(BURST), '--npy', GRAY_NPY])
+    res = [rank_result(o, 'multihost OK ') for o in outs]
+    launches = {}
+    for r in res:
+        for k, v in r['launches'].items():
+            launches[k] = launches.get(k, 0) + v
+    for k in ('ht_cleanup_decode_raw', 'ht_cleanup_encode'):
+        if launches[k] == 0:
+            raise AssertionError(f'{k} was not launched in the multihost '
+                                 f'phase')
+    for k, v in launches.items():
+        kernels[k]['launches'] += v
+    emit('multihost', processes=2, backend='gloo', frames=BURST,
+         equal_to_single_process=True, ranks=res,
+         wall_s=time.perf_counter() - t0, card=card_id)
+    emit('multihost_path_launches', **launches)
+
+
 def main() -> int:
     import argparse
     import numpy as np
@@ -2113,6 +2639,10 @@ def main() -> int:
     ap.add_argument('--against-refine', metavar='SRC',
                     help='only time the refinement kernel built from SRC '
                          '(same decode entries) against this checkout\'s')
+    ap.add_argument('--mosaic-100k', action='store_true',
+                    help='also run the 100000x100000 mosaic (9,604 tiles, '
+                         '~1.3 GB streamed to a file) in the mosaic_scale '
+                         'phase')
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; nothing was run',
@@ -2379,6 +2909,17 @@ def main() -> int:
     trace_phase(gray, gray_ref, gray3, streams, dev, kernels, K, E, R,
                 card_id)
     emit('trace_phase_s', seconds=time.perf_counter() - t0)
+
+    # 14. mosaics and scale-out, each counted: the fixtures through the
+    # mosaic coders and decode_blocks_sharded; BASELINE config 5 at 8K and
+    # 32K; the sharded DWT and the frame fan-out in two processes
+    mosaic_phase(dev, kernels, K, E, R, card_id)
+    mosaic_scale_phase(dev, kernels, K, E, R, card_id,
+                       with_100k=opts.mosaic_100k)
+    t0 = time.perf_counter()
+    parallel_phase(card_id)
+    multihost_phase(kernels, card_id)
+    emit('scale_out_phase_s', seconds=time.perf_counter() - t0)
 
     print(json.dumps({'kernels': list(kernels.values())}), flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -25,6 +25,15 @@ worker threads beside the card's work.
 names and profiles the card (``trace.torch_trace``); ``apps`` holds the
 command-line coders (``python -m openjph_tpu_torch.apps.compress``,
 ``.expand``, ``.stream_expand``), which run on the card.
+
+Scale-out lives in ``openjph_tpu_torch.parallel``, as in the JAX
+package, and is not loaded by this import: ``MosaicDecoder`` /
+``decode_mosaic`` and ``MosaicEncoder`` / ``encode_mosaic`` batch a
+multi-tile image's tiles on the fused runners over a device mesh
+(``make_mesh``), in sub-batches that bound memory, streaming tile-parts
+to a file and decoding from an ``mmap``; ``parallel.dwt_sharded`` lifts
+row-sharded planes with halo rows over ``torch.distributed``;
+``parallel.multihost`` spreads bursts of frames over processes.
 """
 from .core.message import (  # noqa: F401
     OjphError, OjphWarning, set_info_stream, set_warning_stream,

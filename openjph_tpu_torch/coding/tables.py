@@ -59,16 +59,17 @@ def _build_enc(tbl: np.ndarray) -> np.ndarray:
 
 
 def _build_dec(tbl: np.ndarray) -> np.ndarray:
-    """Decoder VLC table, 1024 entries."""
-    out = np.zeros(1024, dtype=np.uint16)
-    for i in range(1024):
-        cwd, c_q = i & 0x7F, i >> 7
-        for row in tbl:
-            tc_q, rho, u_off, e_k, e_1, tcwd, cwd_len = (int(v) for v in row)
-            if tc_q == c_q and tcwd == (cwd & ((1 << cwd_len) - 1)):
-                out[i] = (rho << 4) | (u_off << 3) | (e_k << 12) \
-                    | (e_1 << 8) | cwd_len
-    return out
+    """Decoder VLC table, 1024 entries: entry i = (c_q << 7) | cwd from
+    the last row of context c_q whose codeword is cwd's low cwd_len
+    bits (0 where none is)."""
+    tc_q, rho, u_off, e_k, e_1, tcwd, cwd_len = (
+        tbl[:, k].astype(np.int64) for k in range(7))
+    i = np.arange(1024, dtype=np.int64)[:, None]
+    match = (tc_q[None, :] == (i >> 7)) \
+        & (tcwd[None, :] == ((i & 0x7F) & ((1 << cwd_len[None, :]) - 1)))
+    last = match.shape[1] - 1 - np.argmax(match[:, ::-1], axis=1)
+    val = (rho << 4) | (u_off << 3) | (e_k << 12) | (e_1 << 8) | cwd_len
+    return np.where(match.any(axis=1), val[last], 0).astype(np.uint16)
 
 
 # UVLC prefix decode helper (ojph_block_common.cpp:204-213):

@@ -527,6 +527,17 @@ _EF_BUCKETS = (8, 4, 2, 1)
 _ENC_RUNNERS = _Cache(32)
 
 
+def _enc_runner(plan: _EncPlan, nframes: int, device,
+                stage: str = 'encode.compile') -> _EncRunner:
+    """The cached encode runner of ``nframes`` frames of ``plan``'s key;
+    a miss makes it under the trace stage ``stage``."""
+    def make():
+        with trace.stage(stage):
+            return _make_enc_runner(plan, nframes, device)
+
+    return _ENC_RUNNERS.get((plan.key, nframes, device), make)
+
+
 class VideoEncoder:
     """Pipelined burst encoder for sequences of frames of one shape, on
     ``device`` ('cuda' by default; 'cpu' runs the kernel's plain
@@ -602,13 +613,7 @@ class VideoEncoder:
             self.fallback_bursts += 1
             return [enc.encode(normalize_planes(f)) for f in frames]
         self.fused_bursts += 1
-        F = len(frames)
-
-        def make():
-            with trace.stage('encode.compile'):
-                return _make_enc_runner(plan, F, self.device)
-
-        runner = _ENC_RUNNERS.get((plan.key, F, self.device), make)
+        runner = _enc_runner(plan, len(frames), self.device)
         with trace.stage('encode.host_prep'):
             planes = [normalize_planes(f) for f in frames]
             stacks = [np.stack([_narrow_tile_plane(enc.siz, self._geom, c,

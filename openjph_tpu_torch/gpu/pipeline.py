@@ -161,9 +161,14 @@ _SKELS_LOCK = threading.Lock()
 
 def _plan_skeleton(dec, tile_indices):
     """Geometry-only plan parts (groups' lane layout, placements,
-    bands, tiles), cached per (header bytes, skip, tiles)."""
-    ck = (bytes(dec.data[:dec.hdr.header_size]), dec.skip_recon,
-          None if tile_indices is None else tuple(tile_indices))
+    bands, tiles), cached per (header bytes, skip, tiles).  A subset of
+    tiles is keyed by its tiles' signatures (_tile_signature), not their
+    indices: the skeleton names a tile by its place in ``tile_indices``,
+    so tiles of one geometry share it (a mosaic's tiles, planned one or
+    one sub-batch at a time)."""
+    tiles = None if tile_indices is None else tuple(
+        _tile_signature(dec.tiles[ti]) for ti in tile_indices)
+    ck = (bytes(dec.data[:dec.hdr.header_size]), dec.skip_recon, tiles)
     with _SKELS_LOCK:
         if ck in _SKELS:
             _SKELS.move_to_end(ck)
@@ -176,6 +181,24 @@ def _plan_skeleton(dec, tile_indices):
     return skel
 
 
+def _tile_signature(st) -> tuple:
+    """What a tile's plan skeleton takes from the tile's own geometry
+    (the rest is the header's): per resolution its parities and
+    transform, per band its size, its offset in the codeblock grid, the
+    grid's cell and its kmax and delta."""
+    return tuple(
+        (comp.num_decomps,) + tuple(
+            (res.rect.x0 & 1, res.rect.y0 & 1, res.dwt_type) + tuple(
+                (b, sb.rect.w, sb.rect.h,
+                 sb.rect.x0 & ((1 << sb.log_cb_w) - 1),
+                 sb.rect.y0 & ((1 << sb.log_cb_h) - 1),
+                 sb.log_cb_w, sb.log_cb_h, sb.kmax, sb.delta)
+                for b in _res_band_list(res, r)
+                for sb in (res.bands[b],))
+            for r, res in enumerate(comp.resolutions))
+        for comp in st.geom.comps)
+
+
 def _build_skeleton(dec, tile_indices):
     placements = []
     bands = []
@@ -183,8 +206,9 @@ def _build_skeleton(dec, tile_indices):
     groups: Dict[int, _SkelGroup] = {}
     sel_idx = (range(len(dec.tiles)) if tile_indices is None
                else tile_indices)
-    for ti in sel_idx:
-        st = dec.tiles[ti]
+    # ti: the tile's place in sel_idx (_plan_skeleton)
+    for ti, idx in enumerate(sel_idx):
+        st = dec.tiles[idx]
         tile_comps = []
         for c, comp in enumerate(st.geom.comps):
             cod = dec.hdr.get_cod(c)
@@ -345,6 +369,8 @@ def _build_plan(dec, tile_indices=None) -> _Plan:
     NotImplementedError.  ``tile_indices`` restricts the plan to a
     subset of tiles."""
     skel = _plan_skeleton(dec, tile_indices)
+    sel_idx = (range(len(dec.tiles)) if tile_indices is None
+               else tile_indices)
     buf = np.frombuffer(dec.data, np.uint8)
     broken = 0
     glist = []
@@ -357,7 +383,7 @@ def _build_plan(dec, tile_indices=None) -> _Plan:
         poss = np.empty(g.nm, np.int64)
         at = 0
         for (ti, c, r, b, idx) in g.segs:
-            rb, pb = dec.tiles[ti].rec[(c, r)][b]
+            rb, pb = dec.tiles[sel_idx[ti]].rec[(c, r)][b]
             k = len(idx)
             rows[at:at + k] = rb[idx]
             poss[at:at + k] = pb[idx]
@@ -893,16 +919,20 @@ class GpuDecoder(Decoder):
         return self._decode_fast(plan)
 
     def _any_wide_band(self) -> bool:
-        for st in self.tiles:
-            for c, comp in enumerate(st.geom.comps):
-                if not self.hdr.get_cod(c).is_reversible:
-                    continue
-                for res in comp.resolutions:
-                    for b in range(4):
-                        sb = res.bands[b]
-                        if sb is not None and not sb.empty \
-                                and sb.kmax >= 31:
-                            return True
+        return any(self._wide_band(st) for st in self.tiles)
+
+    def _wide_band(self, st) -> bool:
+        """Whether tile ``st`` has a reversible band of 31 or more bit
+        planes (ROADMAP.md item 7c)."""
+        for c, comp in enumerate(st.geom.comps):
+            if not self.hdr.get_cod(c).is_reversible:
+                continue
+            for res in comp.resolutions:
+                for b in range(4):
+                    sb = res.bands[b]
+                    if sb is not None and not sb.empty \
+                            and sb.kmax >= 31:
+                        return True
         return False
 
     _DUMMY = b'\x00\x22'  # minimal well-formed segment for dead lanes
@@ -1056,10 +1086,12 @@ _F_BUCKETS = (8, 4, 2, 1)
 _RUNNERS = _Cache(32)
 
 
-def _burst_runner(plan: _Plan, nframes: int, device, raw: bool) -> _Runner:
-    """The cached runner of ``nframes`` frames of ``plan``'s key."""
+def _burst_runner(plan: _Plan, nframes: int, device, raw: bool,
+                  stage: str = 'decode.compile') -> _Runner:
+    """The cached runner of ``nframes`` frames of ``plan``'s key; a miss
+    makes it under the trace stage ``stage``."""
     def make():
-        with trace.stage('decode.compile'):
+        with trace.stage(stage):
             return _make_runner(plan, nframes, device, raw)
 
     return _RUNNERS.get((plan.key, nframes, raw, device), make)

@@ -152,10 +152,12 @@ def _forbidden(mod):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     seen = 0
+    names = set()
     for path in _port_sources():
         with open(path) as fh:
             tree = ast.parse(fh.read(), path)
         seen += 1
+        names.add(os.path.relpath(path, REPO))
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
                 bad = [a.name for a in node.names if _forbidden(a.name)]
@@ -165,6 +167,22 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 continue
             assert not bad, f'{path}:{node.lineno} imports {bad}'
     assert seen > 10
+    # the scale-out package is walked too
+    assert {os.path.join('openjph_tpu_torch', 'parallel', f + '.py')
+            for f in ('mesh', 'tiles', 'dwt_sharded', 'multihost')} <= names
+
+
+def test_packaging_lists_every_port_package():
+    """An installed (not editable) port has every subpackage that the
+    source tree holds."""
+    import tomllib
+    with open(os.path.join(REPO, 'pyproject.toml'), 'rb') as fh:
+        listed = set(tomllib.load(fh)['tool']['setuptools']['packages'])
+    root = os.path.join(REPO, 'openjph_tpu_torch')
+    found = {os.path.relpath(d, REPO).replace(os.sep, '.')
+             for d, _, files in os.walk(root) if '__init__.py' in files}
+    assert 'openjph_tpu_torch.parallel' in found
+    assert found <= listed, sorted(found - listed)
 
 
 def test_importing_the_port_loads_no_jax():
@@ -173,6 +191,11 @@ def test_importing_the_port_loads_no_jax():
             'import openjph_tpu_torch.gpu.block_encode_cuda\n'
             'import openjph_tpu_torch.gpu.block_refine_cuda\n'
             'import openjph_tpu_torch.gpu.staging\n'
+            'import openjph_tpu_torch.parallel.tiles\n'
+            'import openjph_tpu_torch.parallel.dwt_sharded\n'
+            'import openjph_tpu_torch.parallel.multihost\n'
+            'from openjph_tpu_torch.parallel import (MosaicDecoder,\n'
+            '    MosaicEncoder)\n'
             'from openjph_tpu_torch import (VideoDecoder, VideoEncoder,\n'
             '    decode_gpu_batch, encode_gpu_batch)\n'
             'bad = [m for m in sys.modules if m.split(".")[0] in '
