@@ -14,7 +14,16 @@ shapes, odd ones among them), also on lanes enough that a block's SigProp
 chains share one warp, split by its gates, the cleanup and
 refinement kernels together against the C++ scalar codeblock decoder,
 and both streams decoded end to end against the port's CPU decode (both
-runner modes, an 8-frame burst); damaged streams: the gray and 3-pass
+runner modes, an 8-frame burst); codeblocks of more than 30 bit planes
+(the `wide` phase): the 64-bit instantiations of the three kernels
+against their plain versions on every lane of a 2048x1080 32-bit frame
+(the refinement kernel on a committed 3-pass 32-bit stream and on
+committed multi-pass codeblocks) and against the C++ scalar coders lane
+by lane, the 32-bit and 29-bit 2048x1080 frames and a 32-bit RGB frame
+through the RCT encoded and decoded on the card against the port's CPU
+encode and decode and the sources, the committed wide fixtures against
+their JAX-package decodes and streams, an 8-frame burst each way, and
+the 32-bit frame timed in turns with the 8-bit one; damaged streams: the gray and 3-pass
 frames cut at 1/4, 1/2 and 3/4 and with a seeded 8-byte flip that strict
 decode rejects, decoded with resilient=True in both runner modes against
 the port's CPU decode (the same lanes zeroed), and the causal stream's
@@ -220,7 +229,8 @@ def runner_views(data: bytes, dev):
 
 def cleanup_args(src, views, raw: bool):
     """Per lane group: the cleanup kernel's arguments as the runner
-    builds them, with the group's meta columns."""
+    builds them (a 64-bit group's with its sample width), with the
+    group's meta columns."""
     from openjph_tpu_torch.gpu.pipeline import _window
     out = []
     for g, c, _ in views:
@@ -232,8 +242,18 @@ def cleanup_args(src, views, raw: bool):
                     _window(src, c[2], c[3], wv, 0),
                     _window(src, c[4], c[5], ws, -1), c[6], g.w, g.h,
                     c[7])
+        if g.bits == 64:
+            args += (64,)
         out.append((g, args, c))
     return out
+
+
+def launch_counts(*mods, wide: bool = False) -> dict:
+    """The launch counts of the wrappers ``mods``: their 32-bit entries,
+    or with ``wide`` their 64-bit instantiations (only the ``wide`` phase
+    drives those)."""
+    return {k: v for m in mods for k, v in m.LAUNCHES.items()
+            if k.endswith('64') == wide}
 
 
 def frame_views(data: bytes, dev):
@@ -944,16 +964,18 @@ def k4_bound(groups, raw: bool, outs):
     SigProp rows up to the last nonzero word (the segment unstuffed;
     MagRef's row holds the same bits reversed); npasses of every lane and
     the other gates (raw also roff and len2) of those lanes;
-    REFINE_OPS_PER_SAMPLE a sample read."""
+    REFINE_OPS_PER_SAMPLE a sample read.  Samples are 4 bytes, 8 in the
+    64-bit instantiation."""
     import torch
     i = 4 if raw else 3
     nbytes = ops = 0
     for (g, d, a), out in zip(groups, outs):
         n, h, w = d.shape
+        sz = d.element_size()
         live = a[i] >= 2
         rows = a[i + 1].to(torch.int64).clamp(min=0, max=h)[live]
         read = int(rows.sum()) * w
-        nbytes += 4 * read + 4 * int((out != d).sum())
+        nbytes += sz * read + sz * int((out != d).sum())
         if raw:
             nbytes += int(a[2][live].to(torch.int64).clamp(min=0).sum())
         else:
@@ -1297,7 +1319,7 @@ def resilient_phase(streams, dev, kernels, K, R):
                  zeroed_by_plan=d.zeroed[0],
                  zeroed_by_kernel_flags=d.zeroed[1],
                  equal_to_committed_reference=True)
-    launches = {**K.LAUNCHES, **R.LAUNCHES}
+    launches = launch_counts(K, R)
     for k, v in launches.items():
         if v == 0:
             raise AssertionError(f'{k} was not launched on the resilient '
@@ -1324,7 +1346,7 @@ def dfs_phase(gray_ref, dev, kernels, K, E):
     back = decode_gpu(got, device=dev)
     if len(back) != 1 or not np.array_equal(back[0], gray_ref):
         raise AssertionError('the DFS encode does not decode to the frame')
-    launches = {**E.LAUNCHES, **K.LAUNCHES}
+    launches = launch_counts(E, K)
     for k in ('ht_cleanup_encode', 'ht_cleanup_decode_raw'):
         if launches[k] == 0:
             raise AssertionError(f'{k} was not launched on the DFS path')
@@ -1485,7 +1507,7 @@ def video_phase(gray, gray_ref, gray3, gray3_ref, dev, kernels, K, E, R):
                              f'lanes, frame by frame {zeroed}')
     counts['damaged_resilient'] = (vd.fused_bursts, vd.fallback_bursts)
     vd.close()
-    launches = {**K.LAUNCHES, **E.LAUNCHES, **R.LAUNCHES}
+    launches = launch_counts(K, E, R)
     for k, v in launches.items():
         if v == 0:
             raise AssertionError(f'{k} was not launched on the video path')
@@ -1591,10 +1613,11 @@ STAGES = ('decode.plan', 'decode.host_prep', 'decode.compile',
           'encode.segment_pack', 'encode.pack.fetch', 'encode.pack.stuff',
           'encode.pack.fill', 'encode.t2', 'encode.host_prep',
           'encode.dev.upload_exec', 'encode.dev.aux_fetch')
-# the kernels' names as the profiler shows them
-K2_NAME = 'ojk::ht_cleanup_kernel<true>'
-K3_NAME = 'oje::ht_cleanup_encode_kernel'
-K4_NAME = 'ojr::ht_refine_kernel<true>'
+# the kernels' names as the profiler shows them (their 32-bit
+# instantiations)
+K2_NAME = 'ojk::ht_cleanup_kernel<true, 32>'
+K3_NAME = 'oje::ht_cleanup_encode_kernel<32>'
+K4_NAME = 'ojr::ht_refine_kernel<true, 32>'
 TRACE_DIR = os.path.join(ROOT, 'traces')
 STREAM_MTU = 1400
 
@@ -1688,7 +1711,7 @@ def apps_phase(gray, gray_ref, gray3, rgb, dev, kernels, K, E, R, card_id):
                         raise AssertionError(
                             'the compress CLI differs from '
                             'gray_2048x1080_rev.j2c from its first SOT on')
-        launches = {**K.LAUNCHES, **E.LAUNCHES, **R.LAUNCHES}
+        launches = launch_counts(K, E, R)
         read = imageio.read_pnm
         checks = (
             ('expand_gray_pgm', read(runs['expand_gray_pgm'][1][3]),
@@ -1848,7 +1871,7 @@ def stream_phase(streams, gray_ref, dev, kernels, K, R, card_id):
                 got, want.astype(np.uint8)):
             raise AssertionError('the frame with a dropped packet differs '
                                  'from the resilient decode')
-        launches = {**K.LAUNCHES, **R.LAUNCHES}
+        launches = launch_counts(K, R)
         for k, v in launches.items():
             kernels[k]['launches'] += v
         emit('stream', frames=BURST, mtu=STREAM_MTU, decode_workers=2,
@@ -2103,7 +2126,7 @@ def trace_phase(gray, gray_ref, gray3, streams, dev, kernels, K, E, R,
         trace.reset()
         vd.close()
         ve.close()
-    launches = {**K.LAUNCHES, **E.LAUNCHES, **R.LAUNCHES}
+    launches = launch_counts(K, E, R)
     for k in ('ht_cleanup_decode_raw', 'ht_cleanup_encode',
               'ht_refine_decode_raw'):
         if launches[k] == 0:
@@ -2242,7 +2265,7 @@ def mosaic_phase(dev, kernels, K, E, R, card_id):
     emit('decode_blocks_sharded', blocks=len(blocks), mesh=mesh.size,
          equal_to_scalar_decoder=True)
     torch.cuda.synchronize()
-    launches = {**K.LAUNCHES, **R.LAUNCHES, **E.LAUNCHES}
+    launches = launch_counts(K, R, E)
     for k, v in launches.items():
         if v == 0:
             raise AssertionError(f'{k} was not launched in the mosaic phase')
@@ -2498,7 +2521,7 @@ def mosaic_scale_phase(dev, kernels, K, E, R, card_id, with_100k=False):
     n8, n32 = MOSAIC_SIZES
     stream8, fig8 = mosaic_run(n8, tile_content, dev, None)
     emit('mosaic_scale', card=card_id, **fig8)
-    launches = {**K.LAUNCHES, **E.LAUNCHES}
+    launches = launch_counts(K, E)
     # the whole image through encode_gpu, outside the measured window and
     # the counts
     t0 = time.perf_counter()
@@ -2522,12 +2545,12 @@ def mosaic_scale_phase(dev, kernels, K, E, R, card_id, with_100k=False):
             rng = np.random.RandomState(9)
             check = set(rng.choice(ntiles, MOSAIC_CHECKED,
                                    replace=False).tolist()) | {0, ntiles - 1}
-            before = {**K.LAUNCHES, **E.LAUNCHES}
+            before = launch_counts(K, E)
             _, fig = mosaic_run(n_img, smooth_tile, dev, check,
                                 path=os.path.join(tmp, f'm{n_img}.j2c'))
             fig['device_over_8k'] = fig['peak_device_mb'] / \
                 fig8['peak_device_mb']
-            for k, v in {**K.LAUNCHES, **E.LAUNCHES}.items():
+            for k, v in launch_counts(K, E).items():
                 fig.setdefault('launches', {})[k] = v - before[k]
             less_stream = fig['peak_host_rss_less_stream_delta_mb']
             if n_img != n32 and less_stream is not None:
@@ -2555,8 +2578,7 @@ def mosaic_scale_phase(dev, kernels, K, E, R, card_id, with_100k=False):
             os.remove(os.path.join(tmp, f'm{n_img}.j2c'))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    launches = {k: v + launches[k]
-                for k, v in {**K.LAUNCHES, **E.LAUNCHES}.items()}
+    launches = {k: v + launches[k] for k, v in launch_counts(K, E).items()}
     for k in ('ht_cleanup_decode_raw', 'ht_cleanup_encode'):
         if launches[k] == 0:
             raise AssertionError(f'{k} was not launched in the mosaic_scale '
@@ -2612,7 +2634,8 @@ def multihost_phase(kernels, card_id):
     launches = {}
     for r in res:
         for k, v in r['launches'].items():
-            launches[k] = launches.get(k, 0) + v
+            if not k.endswith('64'):  # 8-bit frames: no 64-bit launch
+                launches[k] = launches.get(k, 0) + v
     for k in ('ht_cleanup_decode_raw', 'ht_cleanup_encode'):
         if launches[k] == 0:
             raise AssertionError(f'{k} was not launched in the multihost '
@@ -2623,6 +2646,495 @@ def multihost_phase(kernels, card_id):
          equal_to_single_process=True, ranks=res,
          wall_s=time.perf_counter() - t0, card=card_id)
     emit('multihost_path_launches', **launches)
+
+
+# ---- codeblocks of more than 30 bit planes (ROADMAP 7c) ----
+
+WIDE = (1080, 2048)       # the headline geometry, at 32 and 29 bits
+WIDE_RGB = (540, 1024)    # the 32-bit RGB frame through the RCT
+WIDE_FIXTURES = ('wide_gray_s32_l2', 'wide_rgb_u32_rct_l5',
+                 'wide_gray_u29_l5')
+WIDE_P3 = 'wide_gray_u32_p3'
+WIDE_CODEBLOCKS = os.path.join(TESTDATA, 'wide_multipass_codeblocks.npz')
+# the 64-bit decode tables: dec_vlc0|1, dec_uvlc0|1, dec_uvlc0_bias
+WIDE_TABLE_WORDS = 2944
+# the C++ lines the 64-bit instantiations stand for: no TPU kernel is
+# behind them, the JAX package codes such codeblocks on its host
+WIDE_REPLACES = {
+    'ht_cleanup_decode_raw64': 'openjph_tpu/coding/decoder.py:197',
+    'ht_cleanup_decode_dense64': 'openjph_tpu/coding/decoder.py:197',
+    'ht_refine_decode_raw64': 'openjph_tpu/coding/decoder.py:426',
+    'ht_refine_decode_dense64': 'openjph_tpu/coding/decoder.py:426',
+    'ht_cleanup_encode64': 'openjph_tpu/coding/encoder.py:176',
+}
+
+
+def wide_frame(seed: int, shape, bd: int):
+    """A ``bd``-bit frame: smooth full-range content plus seeded noise in
+    the low 12 bits, and a flat band of 3x3 checker patches of 0 and the
+    top value, whose lone high-band coefficients pass 2**32 where the
+    64-bit coders extend u_q past 32."""
+    import numpy as np
+    h, w = shape
+    rng = np.random.RandomState(seed)
+    y, x = np.arange(h)[:, None], np.arange(w)[None, :]
+    s = (np.sin(x / 97.0) + np.cos(y / 61.0) + 2.0) / 4.0 \
+        * float((1 << bd) - 1 - 4096)
+    img = s.astype(np.int64) + rng.randint(0, 4096, shape)
+    y0, band = h // 2, min(64, h // 2)
+    img[y0:y0 + band] = 1 << (bd - 1)
+    patch = np.where(np.indices((3, 3)).sum(0) % 2 == 0, 0, (1 << bd) - 1)
+    for yy in range(y0 + 2, y0 + band - 2, 9):
+        for xx in range(3, w - 8, 13):
+            img[yy:yy + 3, xx:xx + 3] = patch
+    return img
+
+
+def wide_row(name: str, source: str, ms, plain_ms, nbytes, ops) -> dict:
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    return {'name': name, 'route': 'cuda',
+            'source': f'openjph_tpu_torch/gpu/csrc/{source}.cu',
+            'replaces': WIDE_REPLACES[name], 'launches': 0,
+            'max_abs_err': 0, 'ms': ms, 'plain_ms': plain_ms,
+            'bound_ms': max(bytes_ms, ops_ms),
+            'bound_by': 'bytes' if bytes_ms >= ops_ms else 'operations',
+            'library_ms': None, 'bit_exact': True}
+
+
+def wide_decode_rows(data: bytes, dev, name: str, card_id: str) -> dict:
+    """K1-64 and K2-64 against their plain versions on every lane of one
+    frame, K2-64 against the C++ scalar decoder lane by lane, each timed;
+    the quads whose u_q takes the 64-bit extension counted.  Returns the
+    kernels-line rows."""
+    import numpy as np
+    import torch
+    from openjph_tpu_torch import native
+    from openjph_tpu_torch.gpu import block_decode as plain
+    plan, rviews, dviews = frame_views(data, dev)
+    if not all(g.bits == 64 for g in plan.groups):
+        raise AssertionError(f'{name}: a lane group is not 64-bit')
+    buf = np.frombuffer(data, np.uint8)
+    starts, s0 = {}, 0
+    for g in plan.groups:
+        starts[g.gid] = s0
+        s0 += g.n_pad
+    rows = {}
+    for kname, kern, ref, raw in kernel_modes():
+        kname += '64'
+        views = rviews if raw else dviews
+        plain_ms, outs = hold(kname, kern, ref, views, True)
+        ms = sum(cuda_ms(lambda: kern(*a), 20) for _, a, _ in views)
+        coded = out_bytes = samples = live = 0
+        for (g, args, c), (d, _) in zip(views, outs):
+            qhl = c[7].to(torch.int64)
+            n = g.n_pad
+            samples += int((2 * qhl).clamp(max=g.h).sum()) * g.w
+            if raw:
+                coded += int((c[1] + c[2]).sum()) + n * 5 * 4
+            else:
+                coded += 4 * int((c[1] + c[3] + c[5]).sum()) + n * 8 * 4
+            out_bytes += n * g.h * g.w * 8 + n
+            if not raw:
+                continue
+            got = d.cpu().numpy().view(np.uint64)
+            for i in range(len(g.members)):
+                pos, lcup, _, p, _, _, _, h, _ = \
+                    (int(x[starts[g.gid] + i]) for x in plan.lanes)
+                if pos < 0:
+                    continue
+                want = native.decode_codeblock(buf[pos:pos + lcup], 62 - p,
+                                               1, lcup, 0, g.w, h)
+                if not np.array_equal(got[i, :h], want):
+                    raise AssertionError(f'{kname}: lane {i} of group '
+                                         f'{g.w}x{g.h} of {name} differs '
+                                         f'from the scalar decoder')
+                live += 1
+        nbytes = coded + out_bytes + WIDE_TABLE_WORDS * 4
+        rows[kname] = wide_row(kname, 'ht_cleanup_decode', ms, plain_ms,
+                               nbytes, samples * OPS_PER_SAMPLE)
+        emit('wide_kernel_vs_plain', frame=name, kernel=kname,
+             lanes=sum(g.n_pad for g in plan.groups), bit_exact=True,
+             scalar_decoder_equal_lanes=live if raw else None,
+             kernel_ms=ms, plain_ms=plain_ms, bytes_moved=nbytes,
+             samples=samples, bound_ms=rows[kname]['bound_ms'],
+             card=card_id)
+    ext = 0
+    for g, a, _ in dviews:
+        _, u = plain._step1(a[0], a[1], (g.w + 1) // 2, (g.h + 1) // 2,
+                            wide=True)
+        # a non-initial quad row's u_q past 32 took four more bits
+        ext += int((u[:, 1:] >= 33).sum())
+    if ext == 0:
+        raise AssertionError(f'{name}: no quad extends u_q')
+    emit('wide_uq_extension', frame=name, quads=ext)
+    return rows
+
+
+def wide_encode_row(planes, dev, name: str, card_id: str, **kwargs):
+    """K3-64 against its plain version on every lane of one frame's group
+    batches (bit counts, flags, every word), each lane's stuffed segment
+    against the C++ scalar encoder's (bits=64), timed.  Returns its
+    kernels-line row."""
+    import numpy as np
+    import torch
+    from openjph_tpu_torch import native
+    from openjph_tpu_torch.gpu import block_encode as plain
+    from openjph_tpu_torch.gpu import block_encode_cuda as E
+    plan, groups = k3_groups(planes, dev, **kwargs)
+    ms = plain_ms = 0.0
+    nbytes = samples = segs = 0
+    for g, args in groups:
+        if g.bits != 64:
+            raise AssertionError(f'{name}: group {g.w}x{g.h} is not 64-bit')
+        cat, bits, ovf = E.encode_cleanup(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = plain.encode_cleanup_core(*args)
+        torch.cuda.synchronize()
+        plain_ms += (time.perf_counter() - t0) * 1e3
+        if not all(torch.equal(x, y) for x, y in zip((cat, bits, ovf),
+                                                     want)) or ovf.any():
+            raise AssertionError(f'ht_cleanup_encode64: differs from the '
+                                 f'plain version in group {g.w}x{g.h} of '
+                                 f'{name}')
+        ms += cuda_ms(lambda: E.encode_cleanup(*args), 20)
+        buf, qhl = args[0], args[5]
+        n = buf.shape[0]
+        samples += int((2 * qhl.to(torch.int64)).clamp(max=g.h).sum()) * g.w
+        b = bits.cpu().numpy().astype(np.int64)
+        used = (b + 31) // 32
+        nbytes += buf.numel() * 8 + n * 8 + int(used.sum()) * 4 + n * 16
+        # each lane's words stuffed, against the scalar encoder
+        words = cat.cpu().numpy().view(np.uint32)
+        off = np.cumsum([0] + list(g.caps))
+        dense, meta, at = [], np.zeros((n, 6), np.int64), 0
+        for i in range(n):
+            for k in range(3):
+                dense.append(words[i, off[k]:off[k] + used[i, k]])
+                meta[i, 2 * k], meta[i, 2 * k + 1] = at, b[i, k]
+                at += used[i, k]
+        out, lens = native.pack_from_dense(
+            np.concatenate(dense), meta, int(b.sum(1).max()) // 7 + 64)
+        host = buf.cpu().numpy().view(np.uint64)
+        for i, (bid, _, h_t) in enumerate(g.lanes):
+            kmax = plan.bands[bid][3]
+            want = native.encode_codeblock(host[i], kmax - 1, g.w, h_t, 64)
+            if bytes(out[i, :lens[i]]) != want:
+                raise AssertionError(f'ht_cleanup_encode64: lane {i} of '
+                                     f'group {g.w}x{g.h} of {name} differs '
+                                     f'from the scalar encoder')
+            segs += 1
+    row = wide_row('ht_cleanup_encode64', 'ht_cleanup_encode', ms, plain_ms,
+                   nbytes, samples * ENC_OPS_PER_SAMPLE)
+    emit('wide_k3_vs_plain', frame=name, bit_exact=True,
+         scalar_encoder_equal_segments=segs, kernel_ms=ms,
+         plain_ms=plain_ms, bytes_moved=nbytes, samples=samples,
+         bound_ms=row['bound_ms'], card=card_id)
+    return row
+
+
+def wide_codeblock_batches(dev):
+    """The committed multi-pass 64-bit codeblocks, one batch of lanes a
+    shape (each codeblock repeated over 64 lanes, as k4_synthetic packs
+    its batches): per shape (width, height, codeblocks, raw cleanup
+    arguments, raw refinement arguments, dense cleanup arguments, dense
+    refinement arguments), every tensor on the card."""
+    import numpy as np
+    import torch
+    from openjph_tpu_torch.gpu.bitprep import prep_cleanup_streams
+    from openjph_tpu_torch.gpu.block_refine import prep_refine_streams
+    z = np.load(WIDE_CODEBLOCKS)
+    by_shape = {}
+    for i in range(len(z['w'])):
+        w, h = int(z['w'][i]), int(z['h'][i])
+        cb = {k: int(z[k][i]) for k in ('mm', 'npasses', 'causal', 'len1',
+                                         'len2')}
+        cb['data'] = z['data'][z['off'][i]:z['off'][i + 1]].tobytes()
+        cb['samples'] = z['samples'][z['soff'][i]:z['soff'][i + 1]] \
+            .reshape(h, w)
+        by_shape.setdefault((w, h), []).append(cb)
+    out = []
+    for (w, h), cbs in by_shape.items():
+        lanes = [cbs[k % len(cbs)] for k in range(64)]
+
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a, np.int32)) \
+                .to(dev)
+
+        # the runner's raw layout: d[0:lcup-1] (byte lcup-2 OR'd 0xF),
+        # then the refinement segment
+        blob, base, at = bytearray(256), [], 256
+        for c in lanes:
+            d = bytearray(c['data'])
+            seg = d[:c['len1'] - 1]
+            seg[-1] |= 0x0F
+            base.append(at)
+            blob += seg + d[c['len1']:c['len1'] + c['len2']]
+            at = len(blob)
+        blob += bytes(512)
+        blob_t = torch.from_numpy(np.frombuffer(bytes(blob), np.uint8)
+                                  .copy()).to(dev)
+        lc = np.array([c['len1'] for c in lanes])
+        sc = np.array([(c['data'][c['len1'] - 1] << 4)
+                       + (c['data'][c['len1'] - 2] & 0xF) for c in lanes])
+        p = t([62 - c['mm'] for c in lanes])
+        qhl = t([(h + 1) // 2] * 64)
+        gates = (p, t([c['npasses'] for c in lanes]), t([h] * 64),
+                 t([c['causal'] for c in lanes]), w, h)
+        base = np.array(base)
+        words = tuple(int(x) for x in ((sc.max() * 8 + 31) // 32 + 8,
+                                       (sc.max() * 8 + 31) // 32 + 8,
+                                       ((lc - sc).max() * 8 + 31) // 32 + 8))
+        raw_c = (blob_t, t(base), t(lc - sc), t(sc - 1), p, w, h, qhl,
+                 words, 64)
+        raw_r = (blob_t, t(base + lc - 1), t([c['len2'] for c in lanes])) \
+            + gates
+        datas = [c['data'] for c in lanes]
+        st = prep_cleanup_streams(datas, lc, sc)
+        rs = prep_refine_streams(datas, lc,
+                                 np.array([c['len2'] for c in lanes]))
+
+        def words_t(a):
+            return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)) \
+                .to(dev)
+
+        dense_c = (words_t(st['mel']), words_t(st['vlc']), words_t(st['ms']),
+                   p, w, h, qhl, 64)
+        dense_r = (words_t(rs['spp']), words_t(rs['mrp'])) + gates
+        out.append((w, h, lanes, raw_c, raw_r, dense_c, dense_r))
+    return out
+
+
+def wide_k4_codeblocks(dev, card_id: str):
+    """K2-64 then K4-64 (and K1-64 then K4-64) on the committed multi-pass
+    codeblocks: each against its plain version, the result against the
+    codeblocks' stored samples (the JAX package's decoder) and the C++
+    scalar decoder."""
+    import numpy as np
+    import torch
+    from openjph_tpu_torch import native
+    from openjph_tpu_torch.gpu import block_decode as plain
+    from openjph_tpu_torch.gpu import block_decode_cuda as K
+    from openjph_tpu_torch.gpu import block_refine_cuda as R
+    lanes_total = 0
+    for w, h, lanes, raw_c, raw_r, dense_c, dense_r in \
+            wide_codeblock_batches(dev):
+        for raw in (True, False):
+            kern_c = K.decode_cleanup_raw if raw else K.decode_cleanup
+            ref_c = K.decode_cleanup_raw_plain if raw \
+                else plain.decode_cleanup_core
+            kern_r, ref_r = (R.refine_raw, R.refine_raw_plain) if raw \
+                else (R.refine, R.refine_plain)
+            ca, ra = (raw_c, raw_r) if raw else (dense_c, dense_r)
+            d, e = kern_c(*ca)
+            dp, ep_ = ref_c(*ca)
+            torch.cuda.synchronize()
+            if not (torch.equal(d, dp) and torch.equal(e, ep_)) or e.any():
+                raise AssertionError(f'64-bit cleanup on the {w}x{h} '
+                                     f'codeblocks differs (raw={raw})')
+            got = kern_r(d.clone(), *ra)
+            want = ref_r(d, *ra)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f'64-bit refinement on the {w}x{h} '
+                                     f'codeblocks differs from the plain '
+                                     f'version (raw={raw})')
+            got = got.cpu().numpy().view(np.uint64)
+            for i, c in enumerate(lanes):
+                scalar = native.decode_codeblock(
+                    c['data'], c['mm'], c['npasses'], c['len1'],
+                    c['len2'], w, h, bool(c['causal']))
+                if not (np.array_equal(got[i], c['samples'])
+                        and np.array_equal(got[i], scalar)):
+                    raise AssertionError(f'64-bit refinement: lane {i} of '
+                                         f'the {w}x{h} codeblocks differs '
+                                         f'from the stored samples')
+        lanes_total += len(lanes)
+    emit('wide_k4_codeblocks', lanes=lanes_total, bit_exact=True,
+         equal_to_stored_and_scalar=True, card=card_id)
+
+
+def wide_refine_rows(data: bytes, ref, dev, card_id: str) -> dict:
+    """K4-64 in both modes on every lane of the 32-bit 3-pass stream
+    (after the card's own K2-64 / K1-64): against the plain version and,
+    lane by lane, the C++ scalar decoder; timed.  Returns its rows."""
+    import numpy as np
+    from openjph_tpu_torch import native
+    plan, modes = k4_groups(data, dev)
+    buf = np.frombuffer(data, np.uint8)
+    starts, s0 = {}, 0
+    for g in plan.groups:
+        starts[g.gid] = s0
+        s0 += g.n_pad
+    rows = {}
+    for kname, kern, refk, raw in k4_modes():
+        kname += '64'
+        groups = modes[raw]
+        plain_ms, outs = hold_k4(kname, kern, refk, groups, 'as coded')
+        live = 0
+        for (g, _, _), got in zip(groups, outs):
+            got = got.cpu().numpy().view(np.uint64)
+            for i in range(len(g.members)):
+                pos, lcup, _, p, _, npass, l2, h, cs = \
+                    (int(x[starts[g.gid] + i]) for x in plan.lanes)
+                if pos < 0:
+                    continue
+                want = native.decode_codeblock(
+                    buf[pos:pos + lcup + l2], 62 - p, npass, lcup, l2, g.w,
+                    h, bool(cs))
+                if not np.array_equal(got[i, :h], want):
+                    raise AssertionError(f'{kname}: lane {i} of group '
+                                         f'{g.w}x{g.h} differs from the '
+                                         f'scalar decoder')
+                live += 1
+        ms = k4_ms(kern, groups)
+        nbytes, ops = k4_bound(groups, raw, outs)
+        rows[kname] = wide_row(kname, 'ht_refine_decode', ms, plain_ms,
+                               nbytes, ops)
+        emit('wide_k4_vs_plain', stream=WIDE_P3, kernel=kname,
+             bit_exact=True, scalar_decoder_equal_lanes=live, kernel_ms=ms,
+             plain_ms=plain_ms, bytes_moved=nbytes,
+             bound_ms=rows[kname]['bound_ms'], card=card_id)
+    return rows
+
+
+def wide_phase(gray, gray_ref, dev, kernels, K, E, R, card_id):
+    """Codeblocks of more than 30 bit planes (ROADMAP 7c) on the 64-bit
+    instantiations of K1/K2, K4 and K3: each against its plain version on
+    every lane of the 2048x1080 32-bit frame (K4 on the committed 3-pass
+    stream and codeblocks), against the C++ scalar coders lane by lane;
+    then the main path, counted: the 32-bit and 29-bit headline frames and
+    the RCT frame encoded and decoded on the card against the port's CPU
+    encode and decode (and the sources), the committed fixtures against
+    their JAX-package decodes and streams, the 3-pass stream, a burst
+    each way; then wide and 8-bit frames timed in turns."""
+    import numpy as np
+    from openjph_tpu_torch.gpu.encode_pipeline import (encode_gpu,
+                                                       encode_gpu_batch)
+    from openjph_tpu_torch.gpu.pipeline import decode_gpu, decode_gpu_batch
+    t_phase = time.perf_counter()
+    frames = {'u32': (wide_frame(1, WIDE, 32), dict(bit_depth=32)),
+              'u29': (wide_frame(2, WIDE, 29), dict(bit_depth=29)),
+              'rgb_u32_rct': ([wide_frame(3 + c, WIDE_RGB, 32)
+                               for c in range(3)], dict(bit_depth=32))}
+    # the references: the port's CPU encode and decode (plain versions of
+    # every stage); they launch no kernel
+    cpu = {}
+    for key, (planes, kw) in frames.items():
+        t0 = time.perf_counter()
+        s = encode_gpu(planes, device='cpu', reversible=True, **kw)
+        t1 = time.perf_counter()
+        cpu[key] = (s, decode_gpu(s, device='cpu'))
+        emit('wide_cpu_reference', frame=key, encode_s=t1 - t0,
+             decode_s=time.perf_counter() - t1, bytes=len(s))
+    with open(os.path.join(TESTDATA, WIDE_P3 + '.j2c'), 'rb') as f:
+        p3 = f.read()
+    p3_ref = np.load(os.path.join(TESTDATA, WIDE_P3 + '.npz'))['c0']
+
+    # the kernels against their plain versions and the scalar coders
+    rows = wide_decode_rows(cpu['u32'][0], dev, 'u32_2048x1080', card_id)
+    rows['ht_cleanup_encode64'] = wide_encode_row(
+        [frames['u32'][0]], dev, 'u32_2048x1080', card_id, reversible=True,
+        bit_depth=32)
+    rows.update(wide_refine_rows(p3, p3_ref, dev, card_id))
+    wide_k4_codeblocks(dev, card_id)
+
+    # the main path, counted
+    K.reset_launches()
+    E.reset_launches()
+    R.reset_launches()
+    for key, (planes, kw) in frames.items():
+        s, dec = cpu[key]
+        got = encode_gpu(planes, device='cuda', reversible=True, **kw)
+        if from_sot(got) != from_sot(s):
+            raise AssertionError(f'wide {key}: the card\'s encode differs '
+                                 f'from the CPU encode')
+        src = planes if isinstance(planes, list) else [planes]
+        for raw in (True, False):
+            out = decode_gpu(got, device='cuda', raw=raw)
+            if not all(a.dtype == b.dtype and np.array_equal(a, b)
+                       for a, b in zip(out, dec)) or len(out) != len(dec):
+                raise AssertionError(f'wide {key}: the card\'s decode '
+                                     f'differs from the CPU decode '
+                                     f'(raw={raw})')
+            if not all(np.array_equal(a, b) for a, b in zip(out, src)):
+                raise AssertionError(f'wide {key}: not lossless')
+        emit('wide_e2e', frame=key, shape=list(src[0].shape),
+             dtype=str(dec[0].dtype), bytes=len(got),
+             encode_equal_to_cpu=True, decode_equal_to_cpu=True,
+             lossless=True)
+    for name in WIDE_FIXTURES:
+        with open(os.path.join(TESTDATA, name + '.j2c'), 'rb') as f:
+            s = f.read()
+        z = np.load(os.path.join(TESTDATA, name + '.npz'))
+        kw = json.loads(str(z['kwargs']))
+        ref = [z[f'c{c}'] for c in range(len(z.files) - 1)]
+        out = decode_gpu(s, device='cuda')
+        if not all(a.dtype == b.dtype and np.array_equal(a, b)
+                   for a, b in zip(out, ref)) or len(out) != len(ref):
+            raise AssertionError(f'{name}: the card\'s decode differs from '
+                                 f'the committed host decode')
+        if from_sot(encode_gpu(ref, device='cuda', **kw)) != from_sot(s):
+            raise AssertionError(f'{name}: the card\'s encode differs from '
+                                 f'the committed stream')
+        emit('wide_fixture', name=name, decode_equal=True,
+             encode_equal_from_sot=True)
+    for raw in (True, False):
+        out = decode_gpu(p3, device='cuda', raw=raw)
+        if len(out) != 1 or out[0].dtype != p3_ref.dtype or \
+                not np.array_equal(out[0], p3_ref):
+            raise AssertionError(f'{WIDE_P3}: the card\'s decode differs '
+                                 f'from the committed host decode '
+                                 f'(raw={raw})')
+    emit('wide_fixture', name=WIDE_P3, decode_equal=True, modes=2)
+    s32, dec32 = cpu['u32']
+    outs = decode_gpu_batch([s32] * BURST, device='cuda')
+    if any(not np.array_equal(o[0], dec32[0]) or o[0].dtype != dec32[0].dtype
+           for o in outs):
+        raise AssertionError('a frame of the wide decode burst differs')
+    f32 = frames['u32'][0]
+    streams = encode_gpu_batch([f32] * BURST, device='cuda', bit_depth=32,
+                               reversible=True)
+    if any(from_sot(st) != from_sot(s32) for st in streams):
+        raise AssertionError('a stream of the wide encode burst differs')
+    emit('wide_burst', frames=BURST, decode_equal=True, encode_equal=True)
+    launches = launch_counts(K, E, R, wide=True)
+    for k, v in launches.items():
+        if v == 0:
+            raise AssertionError(f'{k} was not launched on the wide path')
+        rows[k]['launches'] = v
+    kernels.update(rows)
+    # the narrow bands of the 29-bit frame (kmax 30) run the 32-bit ones
+    narrow = launch_counts(K, E, R)
+    for k, v in narrow.items():
+        kernels[k]['launches'] += v
+    emit('wide_path_launches', **launches, **narrow)
+
+    # wide and 8-bit frames in turns (host stages vary between calls)
+    def wide_enc(shape, dev):
+        return encoder(shape, 1, dev, reversible=True, bit_depth=32)
+
+    runs = {'gray': (gray, gray_ref, dfs_free), 'u32': (s32, f32, wide_enc)}
+    for n in (1, BURST):
+        res = {}
+        for who in ('gray', 'u32', 'u32', 'gray'):
+            data, img, make = runs[who]
+            dmed, _ = timed(lambda: decode_frames([data] * n, dev), 10)
+            emed, _ = timed(lambda: encode_frames([img] * n, dev, make=make),
+                            10)
+            res.setdefault(who, []).append((dmed['total'], emed['total']))
+        for who, pairs in res.items():
+            mp = runs[who][1].size / 1e6
+            emit('wide_timing', frame=who, frames=n, runs=10,
+                 decode_ms=[d for d, _ in pairs],
+                 encode_ms=[e for _, e in pairs],
+                 decode_mp_per_s=n * mp / (statistics.mean(
+                     d for d, _ in pairs) / 1e3),
+                 encode_mp_per_s=n * mp / (statistics.mean(
+                     e for _, e in pairs) / 1e3), card=card_id)
+    emit('wide_phase_s', seconds=time.perf_counter() - t_phase,
+         card=card_id)
 
 
 def main() -> int:
@@ -2712,7 +3224,7 @@ def main() -> int:
         if not torch.equal(frames[f], ref_t):
             raise AssertionError(f'burst frame {f} differs')
     emit('burst', frames=BURST, bit_exact=True, dtype=str(frames.dtype))
-    launches = dict(K.LAUNCHES)
+    launches = launch_counts(K)
     for k, v in launches.items():
         if v == 0:
             raise AssertionError(f'{k} was not launched on the main path')
@@ -2775,7 +3287,7 @@ def main() -> int:
     if any(st != gray_j2c for st in streams):
         raise AssertionError('an 8-frame burst stream differs from the '
                              'single-frame stream')
-    enc_launches = dict(E.LAUNCHES)
+    enc_launches = launch_counts(E)
     if enc_launches['ht_cleanup_encode'] == 0:
         raise AssertionError('ht_cleanup_encode was not launched on the '
                              'encode path')
@@ -2853,12 +3365,12 @@ def main() -> int:
             not torch.equal(frames[f], ref_t) for f in range(BURST)):
         raise AssertionError('a frame of the 3-pass burst differs')
     emit('burst_multipass', frames=BURST, bit_exact_vs_cpu=True)
-    mp_launches = {**K.LAUNCHES, **R.LAUNCHES}
+    mp_launches = launch_counts(K, R)
     for k, v in mp_launches.items():
         if v == 0:
             raise AssertionError(f'{k} was not launched on the multi-pass '
                                  f'decode path')
-    for k in R.LAUNCHES:
+    for k in launch_counts(R):
         kernels[k]['launches'] = mp_launches[k]
     emit('multipass_path_launches', **mp_launches)
 
@@ -2868,6 +3380,10 @@ def main() -> int:
         emit('timing_multipass', frames=n, runs=40, median_ms=med,
              total_p75_ms=p75, mp_per_s=n * mp / (med['total'] / 1e3),
              card=card_id)
+
+    # 9b. codeblocks of more than 30 bit planes: the 64-bit kernels held,
+    # the wide paths counted, then timed in turns with the 8-bit frame
+    wide_phase(gray, gray_ref, dev, kernels, K, E, R, card_id)
 
     # 10. damaged streams, counted: cuts and a detected flip of the gray
     # frame and of the 3-pass frame, cuts of the causal stream

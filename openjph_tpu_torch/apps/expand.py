@@ -93,8 +93,7 @@ def main(argv=None, device='cuda') -> int:
             raise ArgError(f'unsupported output extension {ext}')
         print(f'Elapsed time = {elapsed:f}')
         return 0
-    # RuntimeError: no card (and NotImplementedError, a subclass: a
-    # stream the port does not decode yet)
+    # RuntimeError: no card
     except (ArgError, ValueError, OSError, EOFError, RuntimeError) as e:
         print(f'ojph-gpu-expand: {e}', file=sys.stderr)
         return 1

@@ -20,6 +20,15 @@ Outputs follow the kernel's contract: ``dec`` int32 [N, height, width]
 holding the uint32 sign-magnitude bit pattern, rows at or past
 2*qh_lim zeroed; ``err`` bool [N], set where U_q > missing_msbs + 2
 on a quad row below qh_lim.
+
+The 64-bit mode (``bits=64``; the reference's ojph_decode_codeblock64,
+which the JAX package runs on its host for more than 30 bit planes)
+takes p = 62 - missing_msbs, extends u_q past 32 by four more VLC bits
+(decoder64.cpp:1000-1010, 1122-1132), reads up to 64 MagSgn bits a
+sample and returns ``dec`` int64 holding the uint64 pattern (sign in
+bit 63).  Torch has almost no arithmetic on uint64, so such patterns
+live in int64 tensors; ``srl`` / ``shl`` / ``clz64`` give them unsigned
+shifts and bit lengths.
 """
 from __future__ import annotations
 
@@ -29,7 +38,9 @@ import torch
 from ..coding.tables import MEL_E, get_tables
 
 _MASK32 = 0xFFFFFFFF
+INT64_MIN = -(1 << 63)
 _TABLES = {}
+_BIAS = {}
 
 
 def tables(device) -> tuple:
@@ -47,6 +58,42 @@ def tables(device) -> tuple:
                         torch.as_tensor(MEL_E.astype(np.int64),
                                         device=device))
     return _TABLES[key]
+
+
+def uvlc_bias(device) -> torch.Tensor:
+    """dec_uvlc0_bias [320] int64 on ``device``: the u offsets that the
+    initial quad row's UVLC modes imply, which the 64-bit decoder's u_q
+    extension subtracts."""
+    key = str(device)
+    if key not in _BIAS:
+        _BIAS[key] = torch.as_tensor(
+            get_tables()['dec_uvlc0_bias'].astype(np.int64), device=device)
+    return _BIAS[key]
+
+
+def srl(x: torch.Tensor, n) -> torch.Tensor:
+    """Logical right shift of int64-held uint64 patterns; 0 for n >= 64."""
+    n = torch.as_tensor(n, dtype=torch.int64, device=x.device)
+    k = n.clamp(1, 63)
+    r = (x >> k) & ~(torch.full_like(k, -1) << (64 - k))
+    return torch.where(n <= 0, x, torch.where(n >= 64, 0, r))
+
+
+def shl(v: torch.Tensor, n, bits: int = 64) -> torch.Tensor:
+    """Left shift in a ``bits``-wide unsigned word (int64-held); 0 for n
+    outside [0, bits - 1], as the JAX package's uint32 shifts give."""
+    n = torch.as_tensor(n, dtype=torch.int64, device=v.device)
+    r = v << n.clamp(0, bits - 1)
+    if bits == 32:
+        r = r & _MASK32
+    return torch.where((n >= 0) & (n < bits), r, 0)
+
+
+def clz64(x: torch.Tensor) -> torch.Tensor:
+    """Leading zeros of int64-held uint64 patterns (x != 0)."""
+    hi = srl(x, 32)
+    return torch.where(hi != 0, _clz32(hi.clamp(min=1)),
+                       32 + _clz32((x & _MASK32).clamp(min=1)))
 
 
 def to_i32_bits(x: torch.Tensor) -> torch.Tensor:
@@ -117,13 +164,15 @@ def _mel_get_run(mask, mel: _Reader, mel_k, run, mel_e):
     return torch.where(mask, new_run, run), torch.where(mask, new_k, mel_k)
 
 
-def _step1(mel_w, vlc_w, qw: int, qh: int):
+def _step1(mel_w, vlc_w, qw: int, qh: int, wide: bool = False):
     """MEL, VLC and UVLC of every quad row (decoder32.cpp:855-1088; the
-    JAX package's _step1), one pair of quads per loop step.  Returns
-    (inf, u) int64 [N, qh, qw]: each quad's VLC record and its u."""
+    JAX package's _step1), one pair of quads per loop step; ``wide``
+    adds the 64-bit decoder's u_q extension.  Returns (inf, u) int64
+    [N, qh, qw]: each quad's VLC record and its u."""
     dev = mel_w.device
     n = mel_w.shape[0]
     vlc_tbl, uvlc_tbl, mel_e = tables(dev)
+    bias_tbl = uvlc_bias(dev) if wide else None
     zero = torch.zeros(n, dtype=torch.int64, device=dev)
     true = torch.ones(n, dtype=torch.bool, device=dev)
 
@@ -189,8 +238,8 @@ def _step1(mel_w, vlc_w, qw: int, qh: int):
                                         uvlc_mode + 0x40, uvlc_mode)
                 run, mel_k = _mel_get_run(needu & (run < 0), mel, mel_k,
                                           run, mel_e)
-            ue = uvlc_tbl[(ubase + uvlc_mode + (vlc.peek() & 0x3F))
-                          .clamp(0, 575)]
+            u_idx = ubase + uvlc_mode + (vlc.peek() & 0x3F)
+            ue = uvlc_tbl[u_idx.clamp(0, 575)]
             vlc.adv(ue & 7)
             ue = ue >> 3
             tmp = vlc.take(ue & 0xF)
@@ -198,30 +247,47 @@ def _step1(mel_w, vlc_w, qw: int, qh: int):
             len0 = ue & 7
             ue = ue >> 3
             kappa0 = 1 if initial else 0
-            u_cur[qx2] = kappa0 + (ue & 7) + (tmp & (~(0xFF << len0)
-                                                     & _MASK32))
+            u0 = kappa0 + (ue & 7) + (tmp & (~(0xFF << len0) & _MASK32))
+            u1 = kappa0 + (ue >> 3) + (tmp >> len0)
+            if wide:
+                # u_q past 32: four more bits each, u0's first
+                # (decoder64.cpp:1000-1010, 1122-1132); the pair may
+                # then read more than one refill's 32 bits
+                bias = (bias_tbl[u_idx.clamp(0, 319)] if initial
+                        else zero)
+                vlc.refill()
+                ext = (u0 - kappa0) - (bias & 3) > 32
+                u0 = u0 + torch.where(ext, (vlc.peek() & 0xF) << 2, 0)
+                vlc.adv(torch.where(ext, 4, 0))
+                vlc.refill()
+                ext = (u1 - kappa0) - (bias >> 2) > 32
+                u1 = u1 + torch.where(ext, (vlc.peek() & 0xF) << 2, 0)
+                vlc.adv(torch.where(ext, 4, 0))
+            u_cur[qx2] = u0
             if second:
-                u_cur[qx2 + 1] = kappa0 + (ue >> 3) + (tmp >> len0)
+                u_cur[qx2 + 1] = u1
         inf_prev = inf_cur
         infs.append(torch.stack(inf_cur[:qw], dim=1))
         us.append(torch.stack(u_cur, dim=1))
     return torch.stack(infs, dim=1), torch.stack(us, dim=1)
 
 
-def _step2(ms_w, inf, u, p, width: int, qh_lim):
+def _step2(ms_w, inf, u, p, width: int, qh_lim, bits: int = 32):
     """MagSgn of every quad row (decoder32.cpp:1089-1316; the JAX
     package's _step2), one loop step per quad row, vectorised over lanes
     and quads: each sample's bit count m_n, an exclusive prefix sum of
-    the counts for its bit offset, and a gather of the two words at
-    each offset.  Returns (dec int64 [N, 2qh, 2qw] uint32 values, err
-    bool [N], set where U_q > missing_msbs + 2 on a row below
-    qh_lim)."""
+    the counts for its bit offset, and a gather of the words at each
+    offset.  ``bits`` = 64: decoder64's samples, up to 64 MagSgn bits
+    each.  Returns (dec int64 [N, 2qh, 2qw] uint32 values, or uint64
+    patterns, err bool [N], set where U_q > missing_msbs + 2 on a row
+    below qh_lim)."""
     dev = ms_w.device
     n, qh, qw = inf.shape
+    wide = bits == 64
     ms = ms_w.to(torch.int64) & _MASK32
     last = ms.shape[1] - 1
     p = p.to(torch.int64)
-    mmsbp2 = ((32 - p) & _MASK32)[:, None]
+    mmsbp2 = ((bits - p) & _MASK32)[:, None]
     sh = (p - 1)[:, None, None]
     qhl = qh_lim.to(torch.int64)
     bit = torch.arange(4, device=dev)
@@ -240,14 +306,15 @@ def _step2(ms_w, inf, u, p, width: int, qh_lim):
         else:
             gamma = q_inf & 0xF0
             gamma = gamma & ((gamma - 0x10) & _MASK32)
-            emax = 31 - _clz32(scr[:, :qw] | scr[:, 1:] | 2)
+            e_or = scr[:, :qw] | scr[:, 1:] | 2
+            emax = 63 - clz64(e_or) if wide else 31 - _clz32(e_or)
             U_q = (u_q + torch.where(gamma != 0, emax, 1)) & _MASK32
         err = err | ((U_q > mmsbp2).any(1) & (r < qhl))
         q4 = q_inf[:, :, None]
         sig = (((q4 >> (4 + bit)) & 1) != 0) & col_ok
         m_n = torch.where(sig, _i32((U_q[:, :, None] - ((q4 >> (12 + bit))
                                                          & 1)) & _MASK32),
-                          0).clamp(0, 31)
+                          0).clamp(0, bits - 1)
         flat = m_n.reshape(n, qw * 4)
         pos = base + torch.cumsum(flat, 1) - flat
         base = base + flat.sum(1, keepdim=True)
@@ -255,11 +322,23 @@ def _step2(ms_w, inf, u, p, width: int, qh_lim):
         s = pos & 31
         w0 = torch.gather(ms, 1, k.clamp(max=last))
         w1 = torch.gather(ms, 1, (k + 1).clamp(max=last))
-        win = (((w0 >> s) | (w1 << (32 - s))) & _MASK32).reshape(n, qw, 4)
-        v_n = ((win & ((1 << m_n) - 1)) | (((q4 >> (8 + bit)) & 1) << m_n)
-               | 1)
-        v_n = torch.where(sig, v_n, 0)
-        val = ((win << 31) | _shl32((v_n + 2) & _MASK32, sh)) & _MASK32
+        if wide:
+            # 64 bits at offset s: three words, shifts wrapping mod 2**64
+            w2 = torch.gather(ms, 1, (k + 2).clamp(max=last))
+            win = ((w0 >> s) | (w1 << (32 - s)) | shl(w2, 64 - s)) \
+                .reshape(n, qw, 4)
+            v_n = ((win & ~(torch.full_like(m_n, -1) << m_n))
+                   | (((q4 >> (8 + bit)) & 1) << m_n) | 1)
+            v_n = torch.where(sig, v_n, 0)
+            val = (win << 63) | shl(v_n + 2, sh)
+        else:
+            win = (((w0 >> s) | (w1 << (32 - s))) & _MASK32) \
+                .reshape(n, qw, 4)
+            v_n = ((win & ((1 << m_n) - 1))
+                   | (((q4 >> (8 + bit)) & 1) << m_n) | 1)
+            v_n = torch.where(sig, v_n, 0)
+            val = ((win << 31) | shl((v_n + 2) & _MASK32, sh, 32)) \
+                & _MASK32
         rows.append(torch.where(sig, val, 0))
         # the next row's exponents: scr[qx] = v_n3(qx - 1) | v_n1(qx)
         scr = torch.zeros((n, qw + 1), dtype=torch.int64, device=dev)
@@ -271,36 +350,35 @@ def _step2(ms_w, inf, u, p, width: int, qh_lim):
 
 
 def decode_cleanup_core(mel_w, vlc_w, ms_w, p, width: int, height: int,
-                        qh_lim=None):
+                        qh_lim=None, bits: int = 32):
     """Decode N same-shape cleanup segments from dense word rows
-    (melw/vlcw/msw [N, W*]), p = 30 - missing_msbs [N] and the per-lane
-    quad-row limit qh_lim [N] (None: every row).  Returns (dec int32
-    [N, height, width], err bool [N])."""
+    (melw/vlcw/msw [N, W*]), p = 30 - missing_msbs [N] (``bits`` = 64:
+    62 - missing_msbs) and the per-lane quad-row limit qh_lim [N]
+    (None: every row).  Returns (dec int32 [N, height, width], or int64
+    with ``bits`` = 64, err bool [N])."""
     dev = mel_w.device
     n = mel_w.shape[0]
     qw = (width + 1) >> 1
     qh = (height + 1) >> 1
     if qh_lim is None:
         qh_lim = torch.full((n,), qh, dtype=torch.int64, device=dev)
-    inf, u = _step1(mel_w, vlc_w, qw, qh)
-    dec, err = _step2(ms_w, inf, u, p, width, qh_lim)
+    inf, u = _step1(mel_w, vlc_w, qw, qh, wide=bits == 64)
+    dec, err = _step2(ms_w, inf, u, p, width, qh_lim, bits)
     dec = dec[:, :height, :width]
     live = (torch.arange(height, device=dev)[None, :]
             < 2 * qh_lim.to(torch.int64)[:, None])[:, :, None]
     dec = torch.where(live, dec, torch.zeros_like(dec))
-    return to_i32_bits(dec), err
+    if bits == 32:
+        return to_i32_bits(dec), err
+    # missing_msbs >= 62: "64 bits insufficient" (decoder64), a zero
+    # block flagged, as in the kernel
+    bad = p.to(torch.int64) < 1
+    return torch.where(bad[:, None, None], 0, dec), err | bad
 
 
 def _i32(x):
     """uint32 values (int64) -> their signed int32 reading (int64)."""
     return x - ((x >> 31) << 32)
-
-
-def _shl32(v, n):
-    """uint32 shift left; 0 for n outside [0, 31] (JAX's semantics)."""
-    ok = (n >= 0) & (n < 32)
-    return torch.where(ok, (v << n.clamp(0, 31)) & _MASK32,
-                       torch.zeros_like(v))
 
 
 def _clz32(x):

@@ -15,7 +15,11 @@ quad-row limit ``qhl`` (the kernel's ``live`` mask).
 
 It is the reference the CUDA kernel is held against and the path CPU
 tensors take; it is not fast.  uint32 quantities are held in int64
-tensors.  Inputs and outputs follow the kernel's contract: ``buf``
+tensors.  An int64 ``buf`` (uint64 patterns, sign in bit 63, p = 63 -
+kmax) is coded as the reference's ojph_encode_codeblock64 codes it
+(the JAX package's coding/encoder.py::encode_codeblock(bits=64)): up to
+63 MagSgn bits a sample, and each u_q's extension bits (enc_uvlc's last
+two columns, four bits from u_q = 33) after the pair's suffixes.  Inputs and outputs follow the kernel's contract: ``buf``
 int32 [N, hp, wp] holding uint32 sign-magnitude bit patterns, ``p`` =
 31 - kmax and ``qhl`` int32 [N]; ``cat`` int32 [N, wm + wv + ws]
 holding uint32 words (MEL at [0, wm), VLC at [wm, wm + wv), MagSgn
@@ -29,22 +33,23 @@ import numpy as np
 import torch
 
 from ..coding.tables import get_tables
-from .block_decode import to_i32_bits
+from .block_decode import clz64, srl, to_i32_bits
 
 _MASK32 = 0xFFFFFFFF
 _TABLES = {}
 
 
-def tables(device) -> tuple:
+def tables(device, ext: bool = False) -> tuple:
     """(vlc [4096], uvlc [4, 75]) int64 encoder tables on ``device``:
     enc_vlc0|enc_vlc1 (the first quad row uses offset 0, later rows
     2048), and enc_uvlc's prefix, prefix length, suffix and suffix
-    length columns."""
-    key = str(device)
+    length columns; ``ext`` adds its extension and extension length
+    columns (uvlc [6, 75])."""
+    key = (str(device), ext)
     if key not in _TABLES:
         t = get_tables()
         vlc = np.concatenate([t['enc_vlc0'], t['enc_vlc1']])
-        uvlc = t['enc_uvlc'][:, :4].T
+        uvlc = t['enc_uvlc'][:, :6 if ext else 4].T
         _TABLES[key] = (
             torch.as_tensor(vlc.astype(np.int64), device=device),
             torch.as_tensor(np.ascontiguousarray(uvlc, np.int64),
@@ -65,6 +70,17 @@ def _qsample(t, p):
     e = torch.frexp((val - 1).clamp(min=1).to(torch.float64)).exponent
     e = torch.where(sig, e.to(torch.int64), 0)
     s = torch.where(sig, (val - 2) + (t >> 31), 0)
+    return sig, e, s
+
+
+def _qsample64(t, p):
+    """_qsample of uint64 patterns held in int64, at p = 63 - kmax:
+    ``t + t`` wraps in int64 as in uint64, the shift is logical and e =
+    64 - clz(val - 1), counted exactly (float64 would round)."""
+    val = srl(t + t, p) & ~1
+    sig = val != 0
+    e = torch.where(sig, 64 - clz64((val - 1).clamp(min=1)), 0)
+    s = torch.where(sig, (val - 2) + srl(t, 63), 0)
     return sig, e, s
 
 
@@ -110,7 +126,7 @@ class _Mel:
 
 def pack_records(vals, lens, cap: int):
     """LSB-first dense words of one stream per lane.  vals / lens
-    [R, N] int64 records in append order (lengths 0..31).  Returns
+    [R, N] int64 records in append order (lengths 0..32).  Returns
     (words [N, cap] int64 holding uint32, bits [N], ovf [N])."""
     n = vals.shape[1]
     vals = vals & ((1 << lens) - 1)
@@ -131,12 +147,16 @@ def encode_cleanup_core(buf, p, width: int, height: int, caps, qhl):
     words (see the module docstring for the contract)."""
     n = buf.shape[0]
     dev = buf.device
-    vlc_tbl, uv = tables(dev)
+    wide = buf.dtype == torch.int64
+    vlc_tbl, uv = tables(dev, wide)
     qw = (width + 1) >> 1
     qh = (height + 1) >> 1
     pairs = (qw + 1) >> 1
     pu = p.to(torch.int64)[:, None, None]
-    sig, ee, ss = _qsample(buf.to(torch.int64) & _MASK32, pu)
+    if wide:
+        sig, ee, ss = _qsample64(buf, pu)
+    else:
+        sig, ee, ss = _qsample(buf.to(torch.int64) & _MASK32, pu)
     sig = sig.to(torch.int64)
     qhl = qhl.to(torch.int64)
     zero = torch.zeros(n, dtype=torch.int64, device=dev)
@@ -149,13 +169,21 @@ def encode_cleanup_core(buf, p, width: int, height: int, caps, qhl):
 
     def uvlc(idx):
         i = idx.clamp(0, 74)
-        return uv[0][i], uv[1][i], uv[2][i], uv[3][i]
+        return tuple(col[i] for col in uv)
 
     def magsgn(rho, uq, tup, s, gate):
         for k in range(4):
             m = torch.where(((rho >> k) & 1) != 0, uq - ((tup >> k) & 1), 0)
-            ms_v.append(s[:, k])
-            ms_l.append(torch.where(gate, m.clamp(max=31), 0))
+            m = torch.where(gate, m, 0)
+            if wide:
+                # up to 63 bits: two records of at most 32
+                ms_v.append(s[:, k] & _MASK32)
+                ms_l.append(m.clamp(max=32))
+                ms_v.append(srl(s[:, k], 32))
+                ms_l.append((m.clamp(max=63) - 32).clamp(min=0))
+            else:
+                ms_v.append(s[:, k])
+                ms_l.append(m.clamp(max=31))
 
     for qy in range(qh):
         init = qy == 0
@@ -240,10 +268,10 @@ def encode_cleanup_core(buf, p, width: int, height: int, caps, qhl):
             if init:
                 mel.event(live & (u_q0 > 0) & (u_q1 > 0),
                           torch.minimum(u_q0, u_q1) > 2)
-            p0a, l0a, s0a, sl0a = uvlc(u_q0 - 2)
-            p1a, l1a, s1a, sl1a = uvlc(u_q1 - 2)
-            p0b, l0b, s0b, sl0b = uvlc(u_q0)
-            p1b, l1b, s1b, sl1b = uvlc(u_q1)
+            p0a, l0a, s0a, sl0a, *x0a = uvlc(u_q0 - 2)
+            p1a, l1a, s1a, sl1a, *x1a = uvlc(u_q1 - 2)
+            p0b, l0b, s0b, sl0b, *x0b = uvlc(u_q0)
+            p1b, l1b, s1b, sl1b, *x1b = uvlc(u_q1)
             if init:
                 case_a = (u_q0 > 2) & (u_q1 > 2)
                 case_b = (u_q0 > 2) & (u_q1 > 0) & ~case_a
@@ -262,6 +290,17 @@ def encode_cleanup_core(buf, p, width: int, height: int, caps, qhl):
                                  torch.where(case_b, 0, sl1b)))):
                 vlc_v.append(cw)
                 vlc_l.append(torch.where(live, ln, 0))
+            if wide:
+                # the u_q extensions (encoder64.cpp:1269-1286, 1491-1492)
+                for cw, ln in (
+                        (torch.where(case_a, x0a[0], x0b[0]),
+                         torch.where(case_a, x0a[1], x0b[1])),
+                        (torch.where(case_a, x1a[0],
+                                     torch.where(case_b, 0, x1b[0])),
+                         torch.where(case_a, x1a[1],
+                                     torch.where(case_b, 0, x1b[1])))):
+                    vlc_v.append(cw)
+                    vlc_l.append(torch.where(live, ln, 0))
 
             # next pair's context
             if init:

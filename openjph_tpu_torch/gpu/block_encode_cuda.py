@@ -1,6 +1,10 @@
 """Wrapper of the CUDA HT cleanup-pass encoder (csrc/ht_cleanup_encode.cu),
 the port of the JAX package's encode_cleanup_pallas_cat (K3).
 
+An int64 ``buf`` (uint64 patterns, p = 63 - kmax: bands of more than 30
+bit planes) launches the kernel's 64-bit instantiation
+(``ht_cleanup_encode64``), an int32 one the 32-bit.
+
 A CPU tensor takes the plain PyTorch version (block_encode.py).  A CUDA
 tensor launches the kernel or raises: there is no fallback.  The kernel
 encodes a codeblock's quad rows on one warp and its MEL stream on a
@@ -25,7 +29,7 @@ from ._build import load_library, nvcc_path
 
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'csrc',
                    'ht_cleanup_encode.cu')
-LAUNCHES = {'ht_cleanup_encode': 0}
+LAUNCHES = {'ht_cleanup_encode': 0, 'ht_cleanup_encode64': 0}
 # codeblocks per CUDA block (two warps each); they share one copy of the
 # encode tables in shared memory.  chip_smoke.py sweeps 1, 2, 4 and 8 on
 # the 2048x1080 gray frame (608 lanes, and 8 x 608 as in a burst) and the
@@ -41,7 +45,8 @@ _LOCK = threading.Lock()
 
 def build(src: str = SRC, name: str = 'ht_cleanup_encode'):
     """Compile ``src``, a source with this kernel's C interface, with
-    nvcc for sm_90a and load it with its entry point bound."""
+    nvcc for sm_90a and load it with its entry points bound (the 64-bit
+    one where the source has it)."""
     nvcc = nvcc_path()
     lib = load_library(
         name, [src],
@@ -49,9 +54,13 @@ def build(src: str = SRC, name: str = 'ht_cleanup_encode'):
                      '-std=c++17', '-O3', '-shared', '-Xcompiler', '-fPIC',
                      '-o', out, src])
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.ht_cleanup_encode.restype = ci
-    lib.ht_cleanup_encode.argtypes = [vp, ci, ci, vp, vp, vp, vp, ci, ci,
-                                      ci, vp, vp, ci, ci, ci, ci, vp]
+    for name in ('ht_cleanup_encode', 'ht_cleanup_encode64'):
+        if not hasattr(lib, name):
+            continue
+        fn = getattr(lib, name)
+        fn.restype = ci
+        fn.argtypes = [vp, ci, ci, vp, vp, vp, vp, ci, ci, ci, vp, vp, ci,
+                       ci, ci, ci, vp]
     return lib
 
 
@@ -118,9 +127,10 @@ def encode_cleanup(buf, p, width: int, height: int, caps, qhl):
     """Encode N same-width codeblocks into dense MEL / VLC / MagSgn words.
 
     buf int32 [N, hp, wp] (hp = 2*ceil(height/2), wp = 4*ceil(width/4))
-    holding uint32 sign-magnitude samples, zero-padded; p = 31 - kmax
-    and qhl (quad-row limit, 0 = no emission) int32 [N]; caps = (wm, wv,
-    ws) word caps.  Returns (cat int32 [N, wm + wv + ws], bits int32
+    holding uint32 sign-magnitude samples, or int64 holding uint64 ones,
+    zero-padded; p = 31 - kmax (int64 ``buf``: 63 - kmax) and qhl
+    (quad-row limit, 0 = no emission) int32 [N]; caps = (wm, wv, ws)
+    word caps.  Returns (cat int32 [N, wm + wv + ws], bits int32
     [N, 3], ovf bool [N]) as block_encode.encode_cleanup_core does."""
     if buf.device.type == 'cpu':
         return plain.encode_cleanup_core(buf, p, width, height, caps, qhl)
@@ -131,8 +141,10 @@ def encode_cleanup(buf, p, width: int, height: int, caps, qhl):
     if hp != ((height + 1) // 2) * 2 or wp != ((width + 3) // 4) * 4:
         raise ValueError(f'buf {tuple(buf.shape)} does not fit '
                          f'{width}x{height} blocks')
+    if buf.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f'buf must be int32 or int64, got {buf.dtype}')
     for name, t in (('buf', buf), ('p', p), ('qhl', qhl)):
-        if t.dtype != torch.int32:
+        if name != 'buf' and t.dtype != torch.int32:
             raise ValueError(f'{name} must be int32, got {t.dtype}')
         if t.device != dev:
             raise ValueError(f'{name} is on {t.device}, expected {dev}')
@@ -144,16 +156,22 @@ def encode_cleanup(buf, p, width: int, height: int, caps, qhl):
         raise ValueError('buf must be 16-byte aligned')
     out = launch(load(), PER_BLOCK, buf, p, width, height, caps, qhl)
     with _LOCK:
-        LAUNCHES['ht_cleanup_encode'] += 1
+        LAUNCHES[_entry(buf)] += 1
     return out
+
+
+def _entry(buf) -> str:
+    return ('ht_cleanup_encode64' if buf.dtype == torch.int64
+            else 'ht_cleanup_encode')
 
 
 def launch(lib, per_block: int, buf, p, width: int, height: int, caps,
            qhl, zeroed: bool = False):
-    """One launch of ``lib``'s entry on checked CUDA tensors.  This
-    checkout's kernel writes every word of ``cat``; ``zeroed`` hands an
-    older source that leaves the words past each used prefix to its
-    caller (``chip_smoke.py --against-encode``) a zeroed ``cat``."""
+    """One launch of ``lib``'s entry of ``buf``'s width on checked CUDA
+    tensors.  This checkout's kernel writes every word of ``cat``;
+    ``zeroed`` hands an older source that leaves the words past each
+    used prefix to its caller (``chip_smoke.py --against-encode``) a
+    zeroed ``cat``."""
     dev = buf.device
     n, hp, wp = buf.shape
     wm, wv, ws = (int(c) for c in caps)
@@ -163,14 +181,13 @@ def launch(lib, per_block: int, buf, p, width: int, height: int, caps,
     ovf = torch.empty((n,), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.ht_cleanup_encode(
+        rc = getattr(lib, _entry(buf))(
             buf.data_ptr(), hp, wp, p.data_ptr(), qhl.data_ptr(),
             _tables(dev).data_ptr(), cat.data_ptr(), wm, wv, ws,
             bits.data_ptr(), ovf.data_ptr(), n, width, height, per_block,
             stream)
     if rc != 0:
-        raise RuntimeError(f'ht_cleanup_encode launch failed: CUDA error '
-                           f'{rc}')
+        raise RuntimeError(f'{_entry(buf)} launch failed: CUDA error {rc}')
     return cat, bits, ovf
 
 

@@ -16,6 +16,10 @@ refinement segment forward with zero fill, MagRef backward with its own
 unstuffing (prep_refine_streams, or unstuff.raw_refine_to_dense on the
 device's raw blob).
 
+A 64-bit ``dec`` (int64 holding uint64 patterns, decoder64's samples
+for more than 30 bit planes) is refined with the sign in bit 63 and p =
+62 - missing_msbs; nothing else differs.
+
 Lanes are gated one by one: ``npasses`` (SigProp from 2, MagRef at 3),
 ``h_lim`` (rows at or past a lane's true height neither consume bits nor
 change samples, so height-merged groups work) and ``causal`` (the
@@ -26,7 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .block_decode import _MASK32, _Reader, _shl32, to_i32_bits
+from .block_decode import _MASK32, _Reader, shl, to_i32_bits
 
 # spread[k] per row k of a column: the neighbours (same column rows
 # k..k+1 and next column rows k-1..k+1, plus the sample itself) that
@@ -75,15 +79,15 @@ def sig_pack(dec, n_sy: int, n_gx: int, h_lim):
 
 
 def _sigprop(dec, spp_w, sig, p, h_lim, causal, do_spp, width: int,
-             height: int, n_sy: int, n_gx: int):
+             height: int, n_sy: int, n_gx: int, bits: int = 32):
     """Significance propagation over the cleanup output ``dec`` (int64
-    uint32 values [N, height, width]); ojph_block_decoder32.cpp:
-    1358-1556."""
+    uint32 values, or uint64 patterns with ``bits`` = 64, [N, height,
+    width]); ojph_block_decoder32.cpp:1358-1556."""
     n = dec.shape[0]
     dev = dec.device
     zero = torch.zeros(n, dtype=torch.int64, device=dev)
     cs_all = sig[:, :, :-1] | (sig[:, :, 1:] << 16)
-    val16 = _shl32(torch.full_like(p, 3), p - 2)
+    val16 = shl(torch.full_like(p, 3), p - 2, bits)
     h_lim = h_lim.to(torch.int64)
     ar16 = torch.arange(16, device=dev)
     masks16 = (1 << ar16) - 1
@@ -132,8 +136,8 @@ def _sigprop(dec, spp_w, sig, p, h_lim, causal, do_spp, width: int,
             pc = _popcount(new_sig[:, None] & masks16[None, :])
             newly = ((new_sig[:, None] >> ar16[None, :]) & 1) != 0
             sgn = (cwd[:, None] >> pc) & 1
-            vals.append(torch.where(newly, (sgn << 31) | val16[:, None],
-                                    0))
+            vals.append(torch.where(newly, (sgn << (bits - 1))
+                                    | val16[:, None], 0))
             rd.adv(cnt + _popcount(new_sig))
 
             new_sig = new_sig | cs
@@ -149,7 +153,7 @@ def _sigprop(dec, spp_w, sig, p, h_lim, causal, do_spp, width: int,
 
 
 def _magref(dec, mrp_w, sig, p, do_mrp, width: int, height: int,
-            n_sy: int, n_gx: int):
+            n_sy: int, n_gx: int, bits: int = 32):
     """Magnitude refinement (ojph_block_decoder32.cpp:1564-1610): one
     bit per cleanup-significant sample, XORed into bits p-1 / p-2."""
     n = dec.shape[0]
@@ -157,8 +161,8 @@ def _magref(dec, mrp_w, sig, p, do_mrp, width: int, height: int,
     n_g2 = (n_gx + 1) // 2
     sig32_all = sig[:, :n_sy, 0:2 * n_g2:2] \
         | (sig[:, :n_sy, 1:2 * n_g2 + 1:2] << 16)
-    half = _shl32(torch.ones_like(p), p - 2)
-    upper = _shl32(torch.ones_like(p), p - 1)
+    half = shl(torch.ones_like(p), p - 2, bits)
+    upper = shl(torch.ones_like(p), p - 1, bits)
     ar32 = torch.arange(32, device=dev)
     masks32 = (1 << ar32) - 1
     rd = _Reader(mrp_w)
@@ -185,22 +189,26 @@ def refine_core(dec, spp_w, mrp_w, p, npasses, h_lim, causal, width: int,
                 height: int):
     """Apply SigProp (npasses >= 2) and MagRef (npasses == 3) to the
     cleanup output ``dec`` (int32 [N, height, width] holding uint32 bit
-    patterns).  spp_w / mrp_w: dense word rows [N, W*]; p = 30 -
-    missing_msbs, npasses, h_lim [N] ints; causal [N] (nonzero: the
-    stripe-causal mode).  Returns the refined int32 [N, height, width];
-    ``dec`` is not modified."""
+    patterns, or int64 holding uint64 ones).  spp_w / mrp_w: dense word
+    rows [N, W*]; p = 30 - missing_msbs (int64 ``dec``: 62 -
+    missing_msbs), npasses, h_lim [N] ints; causal [N] (nonzero: the
+    stripe-causal mode).  Returns the refined [N, height, width] of
+    ``dec``'s dtype; ``dec`` is not modified."""
     n_sy = (height + 3) >> 2
     n_gx = (width + 3) >> 2
     p = p.to(torch.int64)
     do_spp = npasses >= 2
     do_mrp = npasses >= 3
     causal = causal != 0
-    d = dec.to(torch.int64) & _MASK32
+    bits = 64 if dec.dtype == torch.int64 else 32
+    d = dec if bits == 64 else dec.to(torch.int64) & _MASK32
     sig = sig_pack(d, n_sy, n_gx, h_lim)
     out = _sigprop(d, spp_w, sig, p, h_lim, causal, do_spp, width, height,
-                   n_sy, n_gx)
-    out = _magref(out, mrp_w, sig, p, do_mrp, width, height, n_sy, n_gx)
-    return to_i32_bits(torch.where(do_spp[:, None, None], out, d))
+                   n_sy, n_gx, bits)
+    out = _magref(out, mrp_w, sig, p, do_mrp, width, height, n_sy, n_gx,
+                  bits)
+    out = torch.where(do_spp[:, None, None], out, d)
+    return out if bits == 64 else to_i32_bits(out)
 
 
 # ---------------------------------------------------------------------------

@@ -7,6 +7,10 @@
 - :func:`refine_raw` (raw readers; unstuff_spp / unstuff_mrp): each lane's
   stuffed refinement segment in the packed segment blob.
 
+An int64 ``dec`` (uint64 patterns, p = 62 - missing_msbs: codeblocks of
+more than 30 bit planes) launches the kernel's 64-bit instantiation
+(entries ``..._dense64`` / ``..._raw64``), an int32 one the 32-bit.
+
 A CPU tensor takes the plain PyTorch version (block_refine.py, plus
 unstuff.py for the raw readers).  A CUDA tensor launches the kernel or
 raises: there is no fallback.  The kernel refines one codeblock per warp,
@@ -37,7 +41,8 @@ from .unstuff import raw_refine_to_dense
 
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'csrc',
                    'ht_refine_decode.cu')
-LAUNCHES = {'ht_refine_decode_dense': 0, 'ht_refine_decode_raw': 0}
+LAUNCHES = {'ht_refine_decode_dense': 0, 'ht_refine_decode_raw': 0,
+            'ht_refine_decode_dense64': 0, 'ht_refine_decode_raw64': 0}
 # codeblocks (warps) per CUDA block.  chip_smoke.py sweeps 1, 2, 4 and 8
 # on the 3-pass 2048x1080 gray frame's 768 lanes and on those lanes
 # repeated as in an 8-frame burst: on an H100 80GB HBM3 (700 W) 4 came
@@ -76,13 +81,18 @@ def build(src: str = SRC, name: str = 'ht_refine_decode'):
         lib.ht_refine_warp_bytes.argtypes = [ci, ci]
         lib.ht_refine_packs.restype = ci
         lib.ht_refine_packs.argtypes = [ci, ci, ci, ci]
-    lib.ht_refine_decode_dense.restype = ci
-    lib.ht_refine_decode_dense.argtypes = (
-        [vp, vp, vp, ci, ci, vp, vp, vp, vp, ci, ci, ci, ci, vp])
-    lib.ht_refine_decode_raw.restype = ci
-    lib.ht_refine_decode_raw.argtypes = (
-        [vp, vp, ctypes.c_longlong, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,
-         vp])
+    for sfx in ('', '64'):
+        if sfx and not hasattr(lib, 'ht_refine_decode_dense64'):
+            break
+        dense = getattr(lib, 'ht_refine_decode_dense' + sfx)
+        dense.restype = ci
+        dense.argtypes = (
+            [vp, vp, vp, ci, ci, vp, vp, vp, vp, ci, ci, ci, ci, vp])
+        raw = getattr(lib, 'ht_refine_decode_raw' + sfx)
+        raw.restype = ci
+        raw.argtypes = (
+            [vp, vp, ctypes.c_longlong, vp, vp, vp, vp, vp, vp, ci, ci, ci,
+             ci, vp])
     return lib
 
 
@@ -138,15 +148,19 @@ def set_tables(lib, device) -> None:
         _TABLES_SET.add(key)
 
 
-def _check_lanes(dec, width: int, height: int, **lanes):
+def _check_lanes(dec, width: int, height: int, **lanes) -> str:
+    """Checks ``dec`` and the lane columns; returns the entry suffix of
+    ``dec``'s width ('' for int32, '64' for int64)."""
     n = dec.shape[0]
-    if dec.dtype != torch.int32 or tuple(dec.shape) != (n, height, width):
-        raise ValueError(f'dec must be int32 [N, {height}, {width}], got '
-                         f'{dec.dtype} {tuple(dec.shape)}')
+    if dec.dtype not in (torch.int32, torch.int64) \
+            or tuple(dec.shape) != (n, height, width):
+        raise ValueError(f'dec must be int32 or int64 [N, {height}, '
+                         f'{width}], got {dec.dtype} {tuple(dec.shape)}')
     for name, t in lanes.items():
         _i32(t)
         if t.shape[0] != n:
             raise ValueError(f'{name} has {t.shape[0]} lanes, dec {n}')
+    return '64' if dec.dtype == torch.int64 else ''
 
 
 # plain version of the dense mode
@@ -158,40 +172,43 @@ def refine(dec, spp, mrp, p, npasses, h_lim, causal, width: int,
     """SigProp and MagRef of N same-shape codeblocks from dense word rows.
 
     dec: int32 [N, height, width], the cleanup output (uint32 bit
-    patterns); spp / mrp: int32 [N, W*] holding uint32 words; p = 30 -
-    missing_msbs, npasses, h_lim (true heights) and causal (nonzero: the
-    stripe-causal mode) int32 [N].  Returns the refined samples: on the
+    patterns), or int64 (uint64 patterns); spp / mrp: int32 [N, W*]
+    holding uint32 words; p = 30 - missing_msbs (int64 ``dec``: 62 -
+    missing_msbs), npasses, h_lim (true heights) and causal (nonzero:
+    the stripe-causal mode) int32 [N].  Returns the refined samples: on the
     card ``dec`` itself, refined in place; on the CPU a new tensor."""
     if dec.device.type == 'cpu':
         return refine_plain(dec, spp, mrp, p, npasses, h_lim, causal, width,
                             height)
     if dec.device.type != 'cuda':
         raise RuntimeError(f'no HT refinement decoder for {dec.device}')
-    _check_lanes(dec, width, height, spp=spp, mrp=mrp, p=p,
-                 npasses=npasses, h_lim=h_lim, causal=causal)
+    sfx = _check_lanes(dec, width, height, spp=spp, mrp=mrp, p=p,
+                       npasses=npasses, h_lim=h_lim, causal=causal)
     _check(dec.device, dec=dec, spp=spp, mrp=mrp, p=p, npasses=npasses,
            h_lim=h_lim, causal=causal)
     launch_dense(load(), PER_BLOCK, dec, spp, mrp, p, npasses, h_lim, causal,
                  width, height)
     with _LOCK:
-        LAUNCHES['ht_refine_decode_dense'] += 1
+        LAUNCHES['ht_refine_decode_dense' + sfx] += 1
     return dec
 
 
 def launch_dense(lib, per_block: int, dec, spp, mrp, p, npasses, h_lim,
                  causal, width: int, height: int):
-    """One launch of ``lib``'s dense entry on checked CUDA tensors."""
+    """One launch of ``lib``'s dense entry of ``dec``'s width on checked
+    CUDA tensors."""
+    name = 'ht_refine_decode_dense' + ('64' if dec.dtype == torch.int64
+                                       else '')
     dev = dec.device
     set_tables(lib, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.ht_refine_decode_dense(
+        rc = getattr(lib, name)(
             dec.data_ptr(), spp.data_ptr(), mrp.data_ptr(), spp.shape[1],
             mrp.shape[1], p.data_ptr(), npasses.data_ptr(), h_lim.data_ptr(),
             causal.data_ptr(), dec.shape[0], width, height, per_block, stream)
     if rc != 0:
-        raise RuntimeError(f'ht_refine_decode_dense launch failed: CUDA '
-                           f'error {rc}')
+        raise RuntimeError(f'{name} launch failed: CUDA error {rc}')
     return dec
 
 
@@ -224,32 +241,34 @@ def refine_raw(dec, blob, roff, len2, p, npasses, h_lim, causal,
         raise RuntimeError(f'no HT refinement decoder for {blob.device}')
     if blob.dtype != torch.uint8:
         raise ValueError(f'blob must be uint8, got {blob.dtype}')
-    _check_lanes(dec, width, height, roff=roff, len2=len2, p=p,
-                 npasses=npasses, h_lim=h_lim, causal=causal)
+    sfx = _check_lanes(dec, width, height, roff=roff, len2=len2, p=p,
+                       npasses=npasses, h_lim=h_lim, causal=causal)
     _check(blob.device, dec=dec, blob=blob, roff=roff, len2=len2, p=p,
            npasses=npasses, h_lim=h_lim, causal=causal)
     launch_raw(load(), PER_BLOCK, dec, blob, roff, len2, p, npasses, h_lim,
                causal, width, height)
     with _LOCK:
-        LAUNCHES['ht_refine_decode_raw'] += 1
+        LAUNCHES['ht_refine_decode_raw' + sfx] += 1
     return dec
 
 
 def launch_raw(lib, per_block: int, dec, blob, roff, len2, p, npasses,
                h_lim, causal, width: int, height: int):
-    """One launch of ``lib``'s raw entry on checked CUDA tensors."""
+    """One launch of ``lib``'s raw entry of ``dec``'s width on checked
+    CUDA tensors."""
+    name = 'ht_refine_decode_raw' + ('64' if dec.dtype == torch.int64
+                                     else '')
     dev = dec.device
     set_tables(lib, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.ht_refine_decode_raw(
+        rc = getattr(lib, name)(
             dec.data_ptr(), blob.data_ptr(), blob.shape[0], roff.data_ptr(),
             len2.data_ptr(), p.data_ptr(), npasses.data_ptr(),
             h_lim.data_ptr(), causal.data_ptr(), dec.shape[0], width, height,
             per_block, stream)
     if rc != 0:
-        raise RuntimeError(f'ht_refine_decode_raw launch failed: CUDA '
-                           f'error {rc}')
+        raise RuntimeError(f'{name} launch failed: CUDA error {rc}')
     return dec
 
 

@@ -58,6 +58,20 @@
 // K codeblocks (warps) share a CUDA block and its copy of the VLC / UVLC
 // tables (2,624 words).  The kernel launches on the caller's stream and
 // allocates nothing.
+//
+// 64-bit instantiation (entries ..._dense64 / ..._raw64; B = 64 below).
+// The reference decodes a codeblock of more than 30 bit planes with
+// ojph_decode_codeblock64, which the JAX package runs on its host
+// (coding/decoder.py's B == 64 path, native decode_codeblock); no TPU
+// kernel is behind it.  The same kernel is instantiated on the sample
+// type: p = 62 - missing_msbs, the sign in bit 63, `dec` uint64.  Phase 1
+// adds the u_q extension (four more VLC bits where u passes 32 plus the
+// initial row's UVLC bias, decoder64.cpp:1000-1010, 1122-1132; the bias
+// table follows the UVLC tables); phase 2 reads up to 64 MagSgn bits a
+// sample from three words, keeps the exponents in 64 bits and widens the
+// raw MagSgn ring to 512 words (a chunk reads up to 32 * 4 * 63 bits).  A
+// lane with p < 1 (missing_msbs >= 62, "64 bits insufficient") is flagged
+// and zeroed.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -66,6 +80,7 @@ namespace ojk {
 
 constexpr int kVlcEntries = 2048;   // dec_vlc0 | dec_vlc1
 constexpr int kUvlcEntries = 576;   // dec_uvlc0 (320) | dec_uvlc1 (256)
+constexpr int kBiasEntries = 320;   // dec_uvlc0_bias (64-bit tables only)
 constexpr int kTableWords = kVlcEntries + kUvlcEntries;
 constexpr int kMaxSuffix = 4079;    // HTJ2K's cap on Scup, in bytes
 // shared words per MEL or VLC stream: 4,096 bytes of 8 bits (a raw
@@ -73,6 +88,22 @@ constexpr int kMaxSuffix = 4079;    // HTJ2K's cap on Scup, in bytes
 constexpr int kSuffixWords = 1024;
 constexpr int kRingWords = 256;     // raw MagSgn ring, a power of two
 constexpr unsigned kFull = 0xFFFFFFFFu;
+
+// What differs between the two instantiations.
+template <int B>
+struct Width;
+template <>
+struct Width<32> {
+  using T = uint32_t;
+  static constexpr int kTables = kTableWords;
+  static constexpr int kRing = kRingWords;
+};
+template <>
+struct Width<64> {
+  using T = unsigned long long;
+  static constexpr int kTables = kTableWords + kBiasEntries;
+  static constexpr int kRing = 2 * kRingWords;
+};
 
 // A build option for timing the phases (chip_smoke.py's phase split):
 // -DOJK_STOP_AFTER=0 stops each codeblock after phase 0, =1 after phase
@@ -89,6 +120,36 @@ __device__ __forceinline__ uint32_t shl32(uint32_t v, uint32_t n) {
 
 __device__ __forceinline__ uint32_t lowmask(uint32_t n) {
   return n >= 32u ? 0xFFFFFFFFu : (1u << n) - 1u;
+}
+
+__device__ __forceinline__ unsigned long long shl64(unsigned long long v,
+                                                    uint32_t n) {
+  return n >= 64u ? 0ull : v << n;
+}
+
+__device__ __forceinline__ unsigned long long lowmask64(uint32_t n) {
+  return n >= 64u ? ~0ull : (1ull << n) - 1ull;
+}
+
+__device__ __forceinline__ uint32_t shl_t(uint32_t v, uint32_t n) {
+  return shl32(v, n);
+}
+__device__ __forceinline__ unsigned long long shl_t(unsigned long long v,
+                                                    uint32_t n) {
+  return shl64(v, n);
+}
+__device__ __forceinline__ uint32_t lowmask_t(uint32_t, uint32_t n) {
+  return lowmask(n);
+}
+__device__ __forceinline__ unsigned long long lowmask_t(unsigned long long,
+                                                        uint32_t n) {
+  return lowmask64(n);
+}
+__device__ __forceinline__ int clz_t(uint32_t v) {
+  return __clz(static_cast<int>(v));
+}
+__device__ __forceinline__ int clz_t(unsigned long long v) {
+  return __clzll(static_cast<long long>(v));
 }
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
@@ -272,10 +333,13 @@ __device__ __forceinline__ int mel_get_run(Reader& mel, int& mel_k) {
 }
 
 // MEL / VLC / UVLC of quad rows [0, rows) (decoder32.cpp:855-1088, the
-// JAX package's _step1); quad[r * qw + qx] = inf | u << 16.
+// JAX package's _step1); quad[r * qw + qx] = inf | u << 16.  B = 64 adds
+// the u_q extension (bias_tbl: dec_uvlc0_bias).
+template <int B>
 __device__ __forceinline__ void phase1(Reader& mel, Reader& vlc,
                                        const uint32_t* vlc_tbl,
-                                       const uint32_t* uvlc_tbl, int rows,
+                                       const uint32_t* uvlc_tbl,
+                                       const uint32_t* bias_tbl, int rows,
                                        int qw, uint32_t* quad) {
   int mel_k = 0;
   mel.refill();
@@ -336,7 +400,8 @@ __device__ __forceinline__ void phase1(Reader& mel, Reader& vlc,
         if (run == -1) uvlc_mode += 0x40u;
         if (run < 0) run = mel_get_run(mel, mel_k);
       }
-      uint32_t ue = uvlc_tbl[ubase + uvlc_mode + (vlc.peek() & 0x3Fu)];
+      const uint32_t u_idx = uvlc_mode + (vlc.peek() & 0x3Fu);
+      uint32_t ue = uvlc_tbl[ubase + u_idx];
       vlc.adv(static_cast<int>(ue & 7u));
       ue >>= 3;
       const uint32_t tmp = vlc.take(static_cast<int>(ue & 0xFu));
@@ -344,8 +409,23 @@ __device__ __forceinline__ void phase1(Reader& mel, Reader& vlc,
       const uint32_t len0 = ue & 7u;
       ue >>= 3;
       const uint32_t kappa0 = initial ? 1u : 0u;
-      const uint32_t u0 = kappa0 + (ue & 7u) + (tmp & ~(0xFFu << len0));
-      const uint32_t u1 = kappa0 + (ue >> 3) + (tmp >> len0);
+      uint32_t u0 = kappa0 + (ue & 7u) + (tmp & ~(0xFFu << len0));
+      uint32_t u1 = kappa0 + (ue >> 3) + (tmp >> len0);
+      if (B == 64) {
+        // u_q past 32: four more bits each, u0's first (decoder64.cpp:
+        // 1000-1010, 1122-1132); the pair may then read past one refill
+        const int bias = initial ? static_cast<int>(bias_tbl[u_idx]) : 0;
+        vlc.refill();
+        if (static_cast<int>(u0 - kappa0) - (bias & 3) > 32) {
+          u0 += (vlc.peek() & 0xFu) << 2;
+          vlc.adv(4);
+        }
+        vlc.refill();
+        if (static_cast<int>(u1 - kappa0) - (bias >> 2) > 32) {
+          u1 += (vlc.peek() & 0xFu) << 2;
+          vlc.adv(4);
+        }
+      }
       cur[qx2] = t0 | (u0 << 16);
       if (second) cur[qx2 + 1] = t1 | (u1 << 16);
     }
@@ -366,7 +446,8 @@ struct DenseMs {
 };
 
 // Raw MagSgn: the lane's stuffed bytes, unstuffed by the warp 128 at a
-// time into a ring of kRingWords words in shared memory.
+// time into a ring of RING words in shared memory.
+template <int RING>
 struct RingMs {
   const uint8_t* src;
   int n, j;
@@ -374,48 +455,82 @@ struct RingMs {
   uint32_t produced;  // bits unstuffed so far
   uint32_t* ring;
   // Unstuff until the ring holds the stream's bits below `need`.  A
-  // chunk consumes at most 32 * 4 * 31 bits, so the ring's 8,192 bits
-  // hold what the chunk reads and the batch being appended.
+  // chunk consumes at most 32 * 4 * 31 bits (32 * 4 * 63 at B = 64), so
+  // the ring's 8,192 bits (16,384) hold what the chunk reads and the
+  // batch being appended.
   __device__ __forceinline__ void ensure(uint32_t need, int lane) {
     while (produced < need) {
       // clear the bits at and past `produced` in the 33 words a batch of
       // at most 1,024 bits can reach
       const uint32_t w0 = produced >> 5;
-      uint32_t& wd = ring[(w0 + lane) & (kRingWords - 1)];
+      uint32_t& wd = ring[(w0 + lane) & (RING - 1)];
       wd = lane == 0 ? wd & lowmask(produced & 31u) : 0u;
-      if (lane == 0) ring[(w0 + 32u) & (kRingWords - 1)] = 0u;
+      if (lane == 0) ring[(w0 + 32u) & (RING - 1)] = 0u;
       __syncwarp();
-      produced += unstuff128<kMs>(src, j, n, carry, ring, kRingWords - 1,
+      produced += unstuff128<kMs>(src, j, n, carry, ring, RING - 1,
                                   produced, lane);
       j += 128;
       __syncwarp();
     }
   }
   __device__ __forceinline__ uint32_t word(uint32_t k) const {
-    return ring[k & (kRingWords - 1)];
+    return ring[k & (RING - 1)];
   }
 };
+
+// The MagSgn bits at bit offset pos: 32 of them, or 64 (three words).
+template <class Ms>
+__device__ __forceinline__ uint32_t ms_window(const Ms& ms, uint32_t pos,
+                                              uint32_t) {
+  const uint32_t k = pos >> 5, s = pos & 31u;
+  const uint32_t w0 = ms.word(k);
+  return s ? (w0 >> s) | (ms.word(k + 1) << (32u - s)) : w0;
+}
+template <class Ms>
+__device__ __forceinline__ unsigned long long ms_window(
+    const Ms& ms, uint32_t pos, unsigned long long) {
+  const uint32_t k = pos >> 5, s = pos & 31u;
+  const unsigned long long lo =
+      static_cast<unsigned long long>(ms.word(k)) |
+      (static_cast<unsigned long long>(ms.word(k + 1)) << 32);
+  return s ? (lo >> s) |
+                 (static_cast<unsigned long long>(ms.word(k + 2)) << (64u - s))
+           : lo;
+}
+
+// Two adjacent samples, stored as one 8- or 16-byte word.
+__device__ __forceinline__ void store2(uint32_t* o, uint32_t a, uint32_t b) {
+  *reinterpret_cast<uint2*>(o) = make_uint2(a, b);
+}
+__device__ __forceinline__ void store2(unsigned long long* o,
+                                       unsigned long long a,
+                                       unsigned long long b) {
+  *reinterpret_cast<ulonglong2*>(o) = make_ulonglong2(a, b);
+}
 
 // MagSgn of quad rows [0, rows) (decoder32.cpp:1089-1316, the JAX
 // package's _step2), one quad per lane; writes rows [0, 2 * rows) of
 // out and returns the warp's error flag.  scr_a / scr_b: two rows of
-// qw + 2 words for the exponents of the row above.
-template <class Ms>
+// qw + 2 samples for the exponents of the row above.  B = 64: decoder64's
+// samples, up to 64 MagSgn bits each.
+template <int B, class Ms>
 __device__ __forceinline__ bool phase2(Ms& ms, const uint32_t* quad,
-                                       uint32_t* scr_a, uint32_t* scr_b,
+                                       typename Width<B>::T* scr_a,
+                                       typename Width<B>::T* scr_b,
                                        int rows, int qw, int width,
                                        int height, uint32_t p,
-                                       uint32_t* __restrict__ out,
+                                       typename Width<B>::T* __restrict__ out,
                                        int lane) {
-  const uint32_t mmsbp2 = 32u - p;
-  const bool even = (width & 1) == 0;  // 8-byte stores of sample pairs
+  using T = typename Width<B>::T;
+  const uint32_t mmsbp2 = static_cast<uint32_t>(B) - p;
+  const bool even = (width & 1) == 0;  // 8- or 16-byte stores of pairs
   bool err = false;
   uint32_t base = 0;  // MagSgn bits consumed by the quads before
   for (int r = 0; r < rows; ++r) {
     const bool initial = r == 0;
-    const uint32_t* scr = (r & 1) ? scr_b : scr_a;
-    uint32_t* newv = (r & 1) ? scr_a : scr_b;
-    uint32_t carry = 0;  // v_n of sample 3 of the quad left of the chunk
+    const T* scr = (r & 1) ? scr_b : scr_a;
+    T* newv = (r & 1) ? scr_a : scr_b;
+    T carry = 0;  // v_n of sample 3 of the quad left of the chunk
     for (int c0 = 0; c0 < qw; c0 += 32) {
       const int qx = c0 + lane;
       const bool active = qx < qw;
@@ -425,8 +540,9 @@ __device__ __forceinline__ bool phase2(Ms& ms, const uint32_t* quad,
       if (!initial && active) {
         uint32_t gamma = q_inf & 0xF0u;
         gamma &= gamma - 0x10u;
-        const uint32_t emax =
-            31u - static_cast<uint32_t>(__clz(scr[qx] | scr[qx + 1] | 2u));
+        const uint32_t emax = static_cast<uint32_t>(B - 1) -
+                              static_cast<uint32_t>(
+                                  clz_t(scr[qx] | scr[qx + 1] | T(2)));
         U_q += gamma != 0u ? emax : 1u;
       }
       if (active && U_q > mmsbp2) err = true;
@@ -439,7 +555,7 @@ __device__ __forceinline__ bool phase2(Ms& ms, const uint32_t* quad,
         const bool s = ((q_inf >> (4 + bit)) & 1u) != 0u &&
                        (bit < 2 || two_cols);
         m[bit] = s ? clampi(static_cast<int>(U_q - ((q_inf >> (12 + bit)) &
-                                                    1u)), 0, 31)
+                                                    1u)), 0, B - 1)
                    : 0;
         sig |= static_cast<uint32_t>(s) << bit;
         tot += m[bit];
@@ -447,22 +563,19 @@ __device__ __forceinline__ bool phase2(Ms& ms, const uint32_t* quad,
       const int incl = warp_incl_scan(tot, lane);
       const uint32_t ctot =
           static_cast<uint32_t>(__shfl_sync(kFull, incl, 31));
-      ms.ensure(base + ctot + 32u, lane);
+      ms.ensure(base + ctot + static_cast<uint32_t>(B), lane);
       uint32_t pos = base + static_cast<uint32_t>(incl - tot);
-      uint32_t val[4], vn1 = 0, vn3 = 0;
+      T val[4], vn1 = 0, vn3 = 0;
 #pragma unroll
       for (int bit = 0; bit < 4; ++bit) {
-        uint32_t v_n = 0;
+        T v_n = 0;
         val[bit] = 0;
         if ((sig >> bit) & 1u) {
-          const uint32_t k = pos >> 5, s = pos & 31u;
-          const uint32_t w0 = ms.word(k);
-          const uint32_t win =
-              s ? (w0 >> s) | (ms.word(k + 1) << (32u - s)) : w0;
+          const T win = ms_window(ms, pos, T(0));
           const uint32_t mn = static_cast<uint32_t>(m[bit]);
-          v_n = (win & lowmask(mn)) | (((q_inf >> (8 + bit)) & 1u) << mn) |
-                1u;
-          val[bit] = (win << 31) | shl32(v_n + 2u, p - 1u);
+          v_n = (win & lowmask_t(T(0), mn)) |
+                (static_cast<T>((q_inf >> (8 + bit)) & 1u) << mn) | T(1);
+          val[bit] = (win << (B - 1)) | shl_t(v_n + T(2), p - 1u);
         }
         pos += static_cast<uint32_t>(m[bit]);
         if (bit == 1) vn1 = v_n;
@@ -471,11 +584,10 @@ __device__ __forceinline__ bool phase2(Ms& ms, const uint32_t* quad,
       if (active) {
         // samples (2qx, 2r) (2qx, 2r+1) (2qx+1, 2r) (2qx+1, 2r+1)
         const bool low = 2 * r + 1 < height;
-        uint32_t* o = out + (2 * r) * width + 2 * qx;
+        T* o = out + (2 * r) * width + 2 * qx;
         if (even) {
-          *reinterpret_cast<uint2*>(o) = make_uint2(val[0], val[2]);
-          if (low)
-            *reinterpret_cast<uint2*>(o + width) = make_uint2(val[1], val[3]);
+          store2(o, val[0], val[2]);
+          if (low) store2(o + width, val[1], val[3]);
         } else {
           o[0] = val[0];
           if (low) o[width] = val[1];
@@ -486,7 +598,7 @@ __device__ __forceinline__ bool phase2(Ms& ms, const uint32_t* quad,
         }
       }
       // the next row's exponents: newv[qx] = v_n3(qx - 1) | v_n1(qx)
-      uint32_t left = __shfl_up_sync(kFull, vn3, 1);
+      T left = __shfl_up_sync(kFull, vn3, 1);
       if (lane == 0) left = carry;
       if (active) newv[qx] = left | vn1;
       if (qx == qw - 1) newv[qw] = vn3;
@@ -516,17 +628,26 @@ struct Args {
   const int32_t* p;
   const int32_t* qhl;
   const uint32_t* tables;
-  uint32_t* dec;
+  void* dec;
   uint8_t* err;
   int n, width, height;
 };
 
-// shared words per codeblock: MEL and VLC words, the quads' inf | u,
-// two exponent rows and (raw) the MagSgn ring
+// shared words per codeblock: MEL and VLC words, the quads' inf | u
+// (at B = 64 rounded up to an even count, so that the 8-byte exponent
+// rows after them are aligned), two exponent rows of samples and (raw)
+// the MagSgn ring
+template <int B>
+__host__ __device__ inline int quad_words(int width, int height) {
+  const int q = ((width + 1) >> 1) * ((height + 1) >> 1);
+  return B == 64 ? (q + 1) & ~1 : q;
+}
+
+template <int B>
 __host__ __device__ inline int warp_words(int width, int height, bool raw) {
   const int qw = (width + 1) >> 1;
-  const int qh = (height + 1) >> 1;
-  return 2 * kSuffixWords + qw * qh + 2 * (qw + 2) + (raw ? kRingWords : 0);
+  return 2 * kSuffixWords + quad_words<B>(width, height) +
+         2 * (qw + 2) * (B / 32) + (raw ? Width<B>::kRing : 0);
 }
 
 // Dense mode, phase 0: the row's words below min(last, kSuffixWords)
@@ -566,15 +687,17 @@ __device__ __forceinline__ void raw_srcs(const uint8_t* b, int n,
   vlcw = WordSrc{vlc, nullptr, vlim, vlim, 0u};
 }
 
-template <bool RAW>
+template <bool RAW, int B>
 __global__ void ht_cleanup_kernel(const Args a) {
+  using T = typename Width<B>::T;
+  constexpr int kTables = Width<B>::kTables;
   extern __shared__ uint32_t smem[];
   {
     // the tables, 16 bytes a thread (both sides are 16-byte aligned)
     const uint4* t = reinterpret_cast<const uint4*>(a.tables);
     uint4* s = reinterpret_cast<uint4*>(smem);
 #pragma unroll 4
-    for (int i = threadIdx.x; i < kTableWords / 4; i += blockDim.x)
+    for (int i = threadIdx.x; i < kTables / 4; i += blockDim.x)
       s[i] = __ldg(t + i);
   }
   __syncthreads();
@@ -584,20 +707,27 @@ __global__ void ht_cleanup_kernel(const Args a) {
   if (cb >= a.n) return;
   const int qw = (a.width + 1) >> 1;
   const int qh = (a.height + 1) >> 1;
-  uint32_t* mel_sh = smem + kTableWords + warp * warp_words(a.width, a.height,
-                                                            RAW);
+  uint32_t* mel_sh =
+      smem + kTables + warp * warp_words<B>(a.width, a.height, RAW);
   uint32_t* vlc_sh = mel_sh + kSuffixWords;
   uint32_t* quad = vlc_sh + kSuffixWords;
-  uint32_t* scr_a = quad + qw * qh;
-  uint32_t* scr_b = scr_a + qw + 2;
-  uint32_t* ring = scr_b + qw + 2;
-  uint32_t* out = a.dec + static_cast<size_t>(cb) * a.height * a.width;
+  T* scr_a = reinterpret_cast<T*>(quad + quad_words<B>(a.width, a.height));
+  T* scr_b = scr_a + qw + 2;
+  uint32_t* ring = reinterpret_cast<uint32_t*>(scr_b + qw + 2);
+  T* out = static_cast<T*>(a.dec) +
+           static_cast<size_t>(cb) * a.height * a.width;
   const uint32_t p = static_cast<uint32_t>(a.p[cb]);
   const int qhl = a.qhl[cb];
   int rows = qhl < qh ? (qhl > 0 ? qhl : 0) : qh;
   const uint32_t* vlc_tbl = smem;
   const uint32_t* uvlc_tbl = smem + kVlcEntries;
+  const uint32_t* bias_tbl = smem + kTableWords;
   bool err = false;
+  if (B == 64 && static_cast<int>(p) < 1) {
+    // missing_msbs >= 62: "64 bits insufficient" (decoder64)
+    err = true;
+    rows = 0;
+  }
   if (RAW) {
     const long long off = a.lane_off[cb];
     const int msn = a.ms_n[cb], shn = a.sh_n[cb];
@@ -615,13 +745,13 @@ __global__ void ht_cleanup_kernel(const Args a) {
         Reader mel, vlc;
         mel.init(melw);
         vlc.init(vlcw);
-        phase1(mel, vlc, vlc_tbl, uvlc_tbl, rows, qw, quad);
+        phase1<B>(mel, vlc, vlc_tbl, uvlc_tbl, bias_tbl, rows, qw, quad);
       }
       __syncwarp();
-      RingMs ms{b, msn, 0, 0u, 0u, ring};
+      RingMs<Width<B>::kRing> ms{b, msn, 0, 0u, 0u, ring};
       if (OJK_STOP_AFTER >= 2)
-        err = phase2(ms, quad, scr_a, scr_b, rows, qw, a.width, a.height, p,
-                     out, lane);
+        err = phase2<B>(ms, quad, scr_a, scr_b, rows, qw, a.width, a.height,
+                        p, out, lane);
     }
   } else if (rows > 0) {
     const size_t i = static_cast<size_t>(cb);
@@ -632,30 +762,32 @@ __global__ void ht_cleanup_kernel(const Args a) {
       Reader mel, vlc;
       mel.init(melw);
       vlc.init(vlcw);
-      phase1(mel, vlc, vlc_tbl, uvlc_tbl, rows, qw, quad);
+      phase1<B>(mel, vlc, vlc_tbl, uvlc_tbl, bias_tbl, rows, qw, quad);
     }
     __syncwarp();
     DenseMs ms{a.ms + i * a.ws, static_cast<uint32_t>(a.ws - 1)};
     if (OJK_STOP_AFTER >= 2)
-      err = phase2(ms, quad, scr_a, scr_b, rows, qw, a.width, a.height, p,
-                   out, lane);
+      err = phase2<B>(ms, quad, scr_a, scr_b, rows, qw, a.width, a.height,
+                      p, out, lane);
   }
-  // rows at or past 2 * rows: zeros
-  const int start = 2 * rows * a.width;
-  const int total = a.height * a.width;
+  // rows at or past 2 * rows: zeros (counted in 4-byte words)
+  constexpr int kWords = B / 32;
+  uint32_t* o32 = reinterpret_cast<uint32_t*>(out);
+  const int start = 2 * rows * a.width * kWords;
+  const int total = a.height * a.width * kWords;
   if (((start | total) & 3) == 0) {
-    uint4* o = reinterpret_cast<uint4*>(out);
+    uint4* o = reinterpret_cast<uint4*>(o32);
     for (int i = (start >> 2) + lane; i < (total >> 2); i += 32)
       o[i] = make_uint4(0u, 0u, 0u, 0u);
   } else {
-    for (int i = start + lane; i < total; i += 32) out[i] = 0u;
+    for (int i = start + lane; i < total; i += 32) o32[i] = 0u;
   }
   if (lane == 0) a.err[cb] = err ? 1 : 0;
 }
 
 // ---- launch ----
 
-template <bool RAW>
+template <bool RAW, int B>
 int launch(const Args& a, int per_block, cudaStream_t stream) {
   if (a.n <= 0) return static_cast<int>(cudaGetLastError());
   if (a.width < 1 || a.height < 1 ||
@@ -668,37 +800,34 @@ int launch(const Args& a, int per_block, cudaStream_t stream) {
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return static_cast<int>(e);
   const size_t per_warp =
-      static_cast<size_t>(warp_words(a.width, a.height, RAW)) * 4;
-  const size_t tables = static_cast<size_t>(kTableWords) * 4;
+      static_cast<size_t>(warp_words<B>(a.width, a.height, RAW)) * 4;
+  const size_t tables = static_cast<size_t>(Width<B>::kTables) * 4;
   int k = per_block > 0 ? (per_block < 32 ? per_block : 32) : 1;
   while (k > 1 && tables + k * per_warp > static_cast<size_t>(optin)) --k;
   const size_t smem = tables + k * per_warp;
   if (smem > static_cast<size_t>(optin))
     return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(ht_cleanup_kernel<RAW>,
+    e = cudaFuncSetAttribute(ht_cleanup_kernel<RAW, B>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const int grid = (a.n + k - 1) / k;
-  ht_cleanup_kernel<RAW><<<grid, 32 * k, smem, stream>>>(a);
+  ht_cleanup_kernel<RAW, B><<<grid, 32 * k, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace ojk
 
-extern "C" {
+namespace ojk {
 
-// Dense mode: mel/vlc/ms [n, wm|wv|ws] uint32 rows; per_block codeblocks
-// (warps) per CUDA block.  Returns the CUDA error code of the launch (0
-// on success).
-int ht_cleanup_decode_dense(const void* mel, const void* vlc, const void* ms,
-                            int wm, int wv, int ws, const void* p,
-                            const void* qhl, const void* tables, void* dec,
-                            void* err, int n, int width, int height,
-                            int per_block, void* stream) {
-  ojk::Args a{};
+template <int B>
+int dense_entry(const void* mel, const void* vlc, const void* ms, int wm,
+                int wv, int ws, const void* p, const void* qhl,
+                const void* tables, void* dec, void* err, int n, int width,
+                int height, int per_block, void* stream) {
+  Args a{};
   a.mel = static_cast<const uint32_t*>(mel);
   a.vlc = static_cast<const uint32_t*>(vlc);
   a.ms = static_cast<const uint32_t*>(ms);
@@ -708,12 +837,50 @@ int ht_cleanup_decode_dense(const void* mel, const void* vlc, const void* ms,
   a.p = static_cast<const int32_t*>(p);
   a.qhl = static_cast<const int32_t*>(qhl);
   a.tables = static_cast<const uint32_t*>(tables);
-  a.dec = static_cast<uint32_t*>(dec);
+  a.dec = dec;
   a.err = static_cast<uint8_t*>(err);
   a.n = n;
   a.width = width;
   a.height = height;
-  return ojk::launch<false>(a, per_block, static_cast<cudaStream_t>(stream));
+  return launch<false, B>(a, per_block, static_cast<cudaStream_t>(stream));
+}
+
+template <int B>
+int raw_entry(const void* blob, long long blob_bytes, const void* lane_off,
+              const void* ms_n, const void* sh_n, const void* p,
+              const void* qhl, const void* tables, void* dec, void* err,
+              int n, int width, int height, int per_block, void* stream) {
+  Args a{};
+  a.blob = static_cast<const uint8_t*>(blob);
+  a.blob_bytes = blob_bytes;
+  a.lane_off = static_cast<const int32_t*>(lane_off);
+  a.ms_n = static_cast<const int32_t*>(ms_n);
+  a.sh_n = static_cast<const int32_t*>(sh_n);
+  a.p = static_cast<const int32_t*>(p);
+  a.qhl = static_cast<const int32_t*>(qhl);
+  a.tables = static_cast<const uint32_t*>(tables);
+  a.dec = dec;
+  a.err = static_cast<uint8_t*>(err);
+  a.n = n;
+  a.width = width;
+  a.height = height;
+  return launch<true, B>(a, per_block, static_cast<cudaStream_t>(stream));
+}
+
+}  // namespace ojk
+
+extern "C" {
+
+// Dense mode: mel/vlc/ms [n, wm|wv|ws] uint32 rows; per_block codeblocks
+// (warps) per CUDA block; tables: dec_vlc0|1, dec_uvlc0|1.  Returns the
+// CUDA error code of the launch (0 on success).
+int ht_cleanup_decode_dense(const void* mel, const void* vlc, const void* ms,
+                            int wm, int wv, int ws, const void* p,
+                            const void* qhl, const void* tables, void* dec,
+                            void* err, int n, int width, int height,
+                            int per_block, void* stream) {
+  return ojk::dense_entry<32>(mel, vlc, ms, wm, wv, ws, p, qhl, tables, dec,
+                              err, n, width, height, per_block, stream);
 }
 
 // Raw mode: blob [blob_bytes] uint8; lane_off / ms_n / sh_n [n] int32.
@@ -723,21 +890,33 @@ int ht_cleanup_decode_raw(const void* blob, long long blob_bytes,
                           const void* tables, void* dec, void* err, int n,
                           int width, int height, int per_block,
                           void* stream) {
-  ojk::Args a{};
-  a.blob = static_cast<const uint8_t*>(blob);
-  a.blob_bytes = blob_bytes;
-  a.lane_off = static_cast<const int32_t*>(lane_off);
-  a.ms_n = static_cast<const int32_t*>(ms_n);
-  a.sh_n = static_cast<const int32_t*>(sh_n);
-  a.p = static_cast<const int32_t*>(p);
-  a.qhl = static_cast<const int32_t*>(qhl);
-  a.tables = static_cast<const uint32_t*>(tables);
-  a.dec = static_cast<uint32_t*>(dec);
-  a.err = static_cast<uint8_t*>(err);
-  a.n = n;
-  a.width = width;
-  a.height = height;
-  return ojk::launch<true>(a, per_block, static_cast<cudaStream_t>(stream));
+  return ojk::raw_entry<32>(blob, blob_bytes, lane_off, ms_n, sh_n, p, qhl,
+                            tables, dec, err, n, width, height, per_block,
+                            stream);
+}
+
+// The 64-bit instantiations: dec [n, height, width] uint64, p = 62 -
+// missing_msbs, tables dec_vlc0|1, dec_uvlc0|1, dec_uvlc0_bias; the other
+// arguments as above.
+int ht_cleanup_decode_dense64(const void* mel, const void* vlc,
+                              const void* ms, int wm, int wv, int ws,
+                              const void* p, const void* qhl,
+                              const void* tables, void* dec, void* err, int n,
+                              int width, int height, int per_block,
+                              void* stream) {
+  return ojk::dense_entry<64>(mel, vlc, ms, wm, wv, ws, p, qhl, tables, dec,
+                              err, n, width, height, per_block, stream);
+}
+
+int ht_cleanup_decode_raw64(const void* blob, long long blob_bytes,
+                            const void* lane_off, const void* ms_n,
+                            const void* sh_n, const void* p, const void* qhl,
+                            const void* tables, void* dec, void* err, int n,
+                            int width, int height, int per_block,
+                            void* stream) {
+  return ojk::raw_entry<64>(blob, blob_bytes, lane_off, ms_n, sh_n, p, qhl,
+                            tables, dec, err, n, width, height, per_block,
+                            stream);
 }
 
 }  // extern "C"

@@ -78,6 +78,18 @@
 // (2,720), enc_uvlc (its four columns packed into one word per row) and the
 // MEL states.  The kernel launches on the caller's stream and allocates
 // nothing.
+//
+// 64-bit instantiation (entry ht_cleanup_encode64; B = 64 below): the
+// reference codes a band of more than 30 bit planes with
+// ojph_encode_codeblock64, which the JAX package runs on its host
+// (coding/encoder.py::encode_codeblock(bits=64), native encode_codeblock);
+// no TPU kernel is behind it.  The same kernel on uint64 samples (p = 63 -
+// kmax, sign in bit 63): exponents up to 63, MagSgn lengths up to 63 bits,
+// and after the pair's suffixes each u code's extension (enc_uvlc's last
+// two columns: (u - 33) >> 2 in four bits from u = 33, computed here), so a
+// pair's VLC bits reach 38.  Pieces wider than 32 bits go into the rings
+// as two; the scan word's fields widen (MagSgn 13 bits, VLC 10, MEL 9) and
+// the rings double (MagSgn 512 words, VLC 64).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -102,12 +114,56 @@ constexpr int kMsRing = 256;   // two units' MagSgn span <= 250 words
 constexpr int kVlcRing = 32;   // two units' VLC span <= 31 words
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
+// What differs between the two instantiations: the sample type, a pair of
+// samples, the rings (two units' MagSgn span <= 505 words and VLC span
+// <= 39 at B = 64) and the scan word's fields (MagSgn bits | VLC bits <<
+// kVs | MEL events << kEs).
+template <int B>
+struct Width;
+template <>
+struct Width<32> {
+  using T = uint32_t;
+  using Pair = uint2;
+  static constexpr int kMs = kMsRing, kVlc = kVlcRing;
+  static constexpr int kVs = 12, kEs = 21;
+  static constexpr uint32_t kMMask = 4095u, kVMask = 511u;
+};
+template <>
+struct Width<64> {
+  using T = unsigned long long;
+  using Pair = ulonglong2;
+  static constexpr int kMs = 2 * kMsRing, kVlc = 2 * kVlcRing;
+  static constexpr int kVs = 13, kEs = 23;
+  static constexpr uint32_t kMMask = 8191u, kVMask = 1023u;
+};
+
 __device__ __forceinline__ uint32_t lowmask(int n) {
   return n >= 32 ? 0xFFFFFFFFu : (1u << n) - 1u;
 }
 
 __device__ __forceinline__ uint32_t shr32(uint32_t v, uint32_t n) {
   return n >= 32u ? 0u : v >> n;
+}
+
+__device__ __forceinline__ uint32_t shr_t(uint32_t v, uint32_t n) {
+  return shr32(v, n);
+}
+__device__ __forceinline__ unsigned long long shr_t(unsigned long long v,
+                                                    uint32_t n) {
+  return n >= 64u ? 0ull : v >> n;
+}
+__device__ __forceinline__ int clz_t(uint32_t v) {
+  return __clz(static_cast<int>(v));
+}
+__device__ __forceinline__ int clz_t(unsigned long long v) {
+  return __clzll(static_cast<long long>(v));
+}
+__device__ __forceinline__ uint32_t lowmask_t(uint32_t, int n) {
+  return lowmask(n);
+}
+__device__ __forceinline__ unsigned long long lowmask_t(unsigned long long,
+                                                        int n) {
+  return n >= 64 ? ~0ull : (1ull << n) - 1ull;
 }
 
 // mel_exp(k) of MelEnc for k = 0..12, four bits each: 0 0 0 1 1 1 2 2 2 3
@@ -128,8 +184,9 @@ __host__ __device__ __forceinline__ int event_words(int width, int height) {
   return ((qw * qh + ((qw + 1) >> 1) + 31) >> 5) + 4;
 }
 
+template <int B>
 __host__ __device__ __forceinline__ int cb_words(int width, int height) {
-  return 2 + kMsRing + kVlcRing + ((width + 1) >> 1) +
+  return 2 + Width<B>::kMs + Width<B>::kVlc + ((width + 1) >> 1) +
          event_words(width, height) + 32;
 }
 
@@ -203,8 +260,8 @@ struct Mel {
 };
 
 struct Args {
-  const uint32_t* buf;  // [n, hp, wp] sign-magnitude samples
-  const int32_t* p;     // [n] 31 - kmax
+  const void* buf;      // [n, hp, wp] sign-magnitude samples
+  const int32_t* p;     // [n] 31 - kmax (63 - kmax at B = 64)
   const int32_t* qhl;   // [n] quad-row limit
   const uint32_t* tables;
   uint32_t* cat;        // [n, wm + wv + ws]
@@ -284,7 +341,13 @@ __device__ void mel_lane(Mel& mel, volatile uint32_t* hdr,
   hdr[1] = static_cast<uint32_t>(mel.finish());
 }
 
+template <int B>
 __global__ void ht_cleanup_encode_kernel(const Args a) {
+  using T = typename Width<B>::T;
+  using Pair = typename Width<B>::Pair;
+  constexpr int kMsR = Width<B>::kMs, kVlcR = Width<B>::kVlc;
+  constexpr int kVs = Width<B>::kVs, kEs = Width<B>::kEs;
+  constexpr uint32_t kMMask = Width<B>::kMMask, kVMask = Width<B>::kVMask;
   extern __shared__ uint32_t smem[];
   {
     // enc_vlc0|1 and the MEL step table, 16 bytes a thread (both sides
@@ -305,7 +368,7 @@ __global__ void ht_cleanup_encode_kernel(const Args a) {
       smem[kShMelKr + i] = __ldg(a.tables + kMelKrAt + i);
   }
   // every codeblock's shared words zeroed, its MEL bit count unknown
-  const int per_cb = cb_words(a.width, a.height);
+  const int per_cb = cb_words<B>(a.width, a.height);
   const int slots = blockDim.x >> 6;
   uint32_t* regions = smem + kSharedTables;
   for (int i = threadIdx.x; i < slots * per_cb; i += blockDim.x)
@@ -323,10 +386,10 @@ __global__ void ht_cleanup_encode_kernel(const Args a) {
   const int nch = (qw + 31) >> 5;
   volatile uint32_t* hdr = regions + (warp >> 1) * per_cb;
   uint32_t* ms_ring = const_cast<uint32_t*>(hdr) + 2;
-  uint32_t* vlc_ring = ms_ring + kMsRing;
+  uint32_t* vlc_ring = ms_ring + kMsR;
   // ctx[q]: quad q's bottom samples in the row above, e_bl | e_br << 6 |
   // sig_bl << 12 | sig_br << 13
-  uint32_t* ctx = vlc_ring + kVlcRing;
+  uint32_t* ctx = vlc_ring + kVlcR;
   uint32_t* events = ctx + qw;
   // a word per lane that takes the ORs of no bits
   uint32_t* spare = events + event_words(a.width, a.height) + lane;
@@ -345,7 +408,8 @@ __global__ void ht_cleanup_encode_kernel(const Args a) {
   const int rows = qhl < qh ? (qhl > 0 ? qhl : 0) : qh;
   uint32_t* vlc_out = out + a.wm;
   uint32_t* ms_out = vlc_out + a.wv;
-  const uint32_t* blk = a.buf + static_cast<size_t>(cb) * a.hp * a.wp;
+  const T* blk = static_cast<const T*>(a.buf) +
+                 static_cast<size_t>(cb) * a.hp * a.wp;
   uint32_t mbits = 0, vbits = 0;  // MagSgn / VLC bits so far
   uint32_t evn = 0;               // MEL events so far
 
@@ -360,18 +424,18 @@ __global__ void ht_cleanup_encode_kernel(const Args a) {
     return tall ? r1 < rows : c1 < nch;
   };
   // this lane's samples of a unit: top pair, bottom pair
-  auto load = [&](int r, int c, bool on, uint2& top, uint2& bot) {
+  auto load = [&](int r, int c, bool on, Pair& top, Pair& bot) {
     const int q = 32 * c + lane;
     if (on && q < qw) {
-      const uint32_t* at = blk + static_cast<size_t>(2 * r) * a.wp + 2 * q;
-      top = __ldg(reinterpret_cast<const uint2*>(at));
-      bot = __ldg(reinterpret_cast<const uint2*>(at + a.wp));
+      const T* at = blk + static_cast<size_t>(2 * r) * a.wp + 2 * q;
+      top = __ldg(reinterpret_cast<const Pair*>(at));
+      bot = __ldg(reinterpret_cast<const Pair*>(at + a.wp));
     } else {
-      top = make_uint2(0u, 0u);
-      bot = make_uint2(0u, 0u);
+      top = Pair{0, 0};
+      bot = Pair{0, 0};
     }
   };
-  uint2 ntop[2], nbot[2];
+  Pair ntop[2], nbot[2];
   {
     int r1, c1;
     const bool on1 = partner(0, 0, r1, c1);
@@ -387,8 +451,8 @@ __global__ void ht_cleanup_encode_kernel(const Args a) {
     ru[0] = r;
     cu[0] = c;
     const bool on1 = partner(r, c, ru[1], cu[1]);
-    const uint2 top[2] = {ntop[0], ntop[1]};
-    const uint2 bot[2] = {nbot[0], nbot[1]};
+    const Pair top[2] = {ntop[0], ntop[1]};
+    const Pair bot[2] = {nbot[0], nbot[1]};
     const int rn = tall ? r + 2 : (c + 2 < nch ? r : r + 1);
     const int cn = tall || c + 2 >= nch ? 0 : c + 2;
     if (rn < rows) {
@@ -403,21 +467,23 @@ __global__ void ht_cleanup_encode_kernel(const Args a) {
     // 3 bottom-right ----
     int q[2], e[2][4], emax[2];
     bool present[2], init[2];
-    uint32_t s[2][4], rho[2], fresh[2];
+    T s[2][4];
+    uint32_t rho[2], fresh[2];
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
       q[u] = 32 * cu[u] + lane;
       present[u] = (u == 0 || on1) && q[u] < qw;
       init[u] = ru[u] == 0;
-      const uint32_t t[4] = {top[u].x, bot[u].x, top[u].y, bot[u].y};
+      const T t[4] = {top[u].x, bot[u].x, top[u].y, bot[u].y};
       rho[u] = 0u;
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        // (t + t) >> p wraps in uint32, which drops the sign bit
-        const uint32_t val = shr32(t[k] + t[k], p) & ~1u;
-        const bool sig = val != 0u;
-        e[u][k] = sig ? 32 - __clz(static_cast<int>(val - 1u)) : 0;
-        s[u][k] = sig ? (val - 2u) + (t[k] >> 31) : 0u;
+        // (t + t) >> p wraps in the sample type, which drops the sign bit
+        const T val = shr_t(static_cast<T>(t[k] + t[k]), p) & ~T(1);
+        const bool sig = val != T(0);
+        e[u][k] = sig ? B - clz_t(static_cast<T>(val - T(1))) : 0;
+        s[u][k] = sig ? static_cast<T>((val - T(2)) + (t[k] >> (B - 1)))
+                      : T(0);
         rho[u] |= static_cast<uint32_t>(sig) << k;
       }
       emax[u] = max(max(e[u][0], e[u][1]), max(e[u][2], e[u][3]));
@@ -461,7 +527,8 @@ __global__ void ht_cleanup_encode_kernel(const Args a) {
     // ---- per quad: c_q, kappa, u_q, eps, tuple, MagSgn lengths; per pair
     // on its even lane: VLC bits and MEL events ----
     int m[2][4];
-    uint32_t x[2], vrec[2], mev[2];
+    uint32_t x[2], mev[2];
+    T vrec[2];
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
       const uint32_t rl = rho_left[u], ow = own[u], lf = left[u],
@@ -493,7 +560,7 @@ __global__ void ht_cleanup_encode_kernel(const Args a) {
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         const int mk = uq - static_cast<int>((tuple >> k) & 1u);
-        m[u][k] = ((rho[u] >> k) & 1u) ? (mk < 31 ? mk : 31) : 0;
+        m[u][k] = ((rho[u] >> k) & 1u) ? (mk < B - 1 ? mk : B - 1) : 0;
         mlen += m[u][k];
       }
       const bool mel_has = present[u] && c_q == 0;
@@ -511,23 +578,35 @@ __global__ void ht_cleanup_encode_kernel(const Args a) {
       // u_q1 = 1 or 2) codes u_q1 - 1 in one bit and no second suffix
       const bool ca = init[u] && u0 > 2 && u1 > 2;
       const bool cb2 = init[u] && !ca && u0 > 2 && u1 > 0;
-      const uint32_t a0 = uvlc_tbl[min(ca ? u0 - 2 : u0, 74)];
-      const uint32_t a1 = uvlc_tbl[min(ca ? u1 - 2 : u1, 74)];
+      const int i0 = min(ca ? u0 - 2 : u0, 74);
+      const int i1 = min(ca ? u1 - 2 : u1, 74);
+      const uint32_t a0 = uvlc_tbl[i0];
+      const uint32_t a1 = uvlc_tbl[i1];
       const uint32_t pre1 = cb2 ? static_cast<uint32_t>(u1 - 1) & 1u : a1 & 255u;
       const uint32_t plen1 = cb2 ? 1u : (a1 >> 8) & 255u;
       const uint32_t suf1 = cb2 ? 0u : (a1 >> 16) & 255u;
       const uint32_t slen1 = cb2 ? 0u : a1 >> 24;
-      uint32_t rec = tcw, n = tlen;
-      rec |= (part & 255u) << n;
+      T rec = tcw;
+      uint32_t n = tlen;
+      rec |= static_cast<T>(part & 255u) << n;
       n += (part >> 8) & 15u;
-      rec |= (a0 & 255u) << n;
+      rec |= static_cast<T>(a0 & 255u) << n;
       n += (a0 >> 8) & 255u;
-      rec |= pre1 << n;
+      rec |= static_cast<T>(pre1) << n;
       n += plen1;
-      rec |= ((a0 >> 16) & 255u) << n;
+      rec |= static_cast<T>((a0 >> 16) & 255u) << n;
       n += a0 >> 24;
-      rec |= suf1 << n;
+      rec |= static_cast<T>(suf1) << n;
       n += slen1;
+      if (B == 64) {
+        // the u codes' extensions (encoder64.cpp:1269-1286, 1491-1492):
+        // enc_uvlc row i >= 33 extends by (i - 33) >> 2 in four bits;
+        // row 0's case b has none for u_q1
+        rec |= static_cast<T>(i0 >= 33 ? (i0 - 33) >> 2 : 0) << n;
+        n += i0 >= 33 ? 4u : 0u;
+        rec |= static_cast<T>(!cb2 && i1 >= 33 ? (i1 - 33) >> 2 : 0) << n;
+        n += !cb2 && i1 >= 33 ? 4u : 0u;
+      }
       // the pair's MEL events, in order
       const bool h0 = mel_has, h1 = (part >> 20) & 1u;
       const bool hu = init[u] && u0 > 0 && u1 > 0;
@@ -537,10 +616,10 @@ __global__ void ht_cleanup_encode_kernel(const Args a) {
       cnt += h1;
       ev |= static_cast<uint32_t>(hu && min(u0, u1) > 2) << cnt;
       cnt += hu;
-      vrec[u] = lead ? rec : 0u;
+      vrec[u] = lead ? rec : T(0);
       mev[u] = lead ? ev : 0u;
-      x[u] = static_cast<uint32_t>(mlen) | ((lead ? n : 0u) << 12) |
-             ((lead ? cnt : 0u) << 21);
+      x[u] = static_cast<uint32_t>(mlen) | ((lead ? n : 0u) << kVs) |
+             ((lead ? cnt : 0u) << kEs);
     }
 
     // ---- bit positions: a scan of MagSgn | VLC << 12 | MEL << 21 per
@@ -557,27 +636,41 @@ __global__ void ht_cleanup_encode_kernel(const Args a) {
     }
     const uint32_t tot0 = __shfl_sync(kFull, incl[0], 31);
     const uint32_t tot1 = __shfl_sync(kFull, incl[1], 31);
-    const uint32_t base_m[2] = {mbits, mbits + (tot0 & 4095u)};
-    const uint32_t base_v[2] = {vbits, vbits + ((tot0 >> 12) & 511u)};
-    const uint32_t base_e[2] = {0u, tot0 >> 21};
+    const uint32_t base_m[2] = {mbits, mbits + (tot0 & kMMask)};
+    const uint32_t base_v[2] = {vbits, vbits + ((tot0 >> kVs) & kVMask)};
+    const uint32_t base_e[2] = {0u, tot0 >> kEs};
     uint32_t ev_w[3] = {0u, 0u, 0u};
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
       const uint32_t excl = incl[u] - x[u];
-      const uint32_t vlen = (x[u] >> 12) & 511u;
+      const uint32_t vlen = (x[u] >> kVs) & kVMask;
       // every piece goes in by atomicOr, without branches: a piece of no
-      // bits goes to this lane's spare word
-      deposit(vlc_ring, kVlcRing - 1, spare, base_v[u] + ((excl >> 12) & 511u),
-              vrec[u], static_cast<int>(vlen));
-      uint32_t pos = base_m[u] + (excl & 4095u);
+      // bits goes to this lane's spare word; at B = 64 a piece of more
+      // than 32 bits goes in as two
+      const uint32_t vpos = base_v[u] + ((excl >> kVs) & kVMask);
+      deposit(vlc_ring, kVlcR - 1, spare, vpos,
+              static_cast<uint32_t>(vrec[u]),
+              static_cast<int>(B == 64 ? min(vlen, 32u) : vlen));
+      if (B == 64)
+        deposit(vlc_ring, kVlcR - 1, spare, vpos + 32u,
+                static_cast<uint32_t>(
+                    static_cast<unsigned long long>(vrec[u]) >> 32),
+                static_cast<int>(vlen > 32u ? vlen - 32u : 0u));
+      uint32_t pos = base_m[u] + (excl & kMMask);
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        deposit(ms_ring, kMsRing - 1, spare, pos, s[u][k] & lowmask(m[u][k]),
-                m[u][k]);
+        const T v = s[u][k] & lowmask_t(T(0), m[u][k]);
+        deposit(ms_ring, kMsR - 1, spare, pos, static_cast<uint32_t>(v),
+                B == 64 ? min(m[u][k], 32) : m[u][k]);
+        if (B == 64)
+          deposit(ms_ring, kMsR - 1, spare, pos + 32u,
+                  static_cast<uint32_t>(static_cast<unsigned long long>(v) >>
+                                        32),
+                  m[u][k] > 32 ? m[u][k] - 32 : 0);
         pos += static_cast<uint32_t>(m[u][k]);
       }
       // this unit's events at their rank among both units' (<= 96 bits)
-      const uint32_t rank = base_e[u] + (excl >> 21);
+      const uint32_t rank = base_e[u] + (excl >> kEs);
       const uint64_t ev = static_cast<uint64_t>(mev[u]) << (rank & 31u);
       const uint32_t wi = rank >> 5;
       ev_w[0] |= wi == 0 ? static_cast<uint32_t>(ev) : 0u;
@@ -593,7 +686,7 @@ __global__ void ht_cleanup_encode_kernel(const Args a) {
     __syncwarp();
 
     // ---- the events to the MEL warp; completed words out ----
-    const uint32_t nev = (tot0 >> 21) + (tot1 >> 21);
+    const uint32_t nev = (tot0 >> kEs) + (tot1 >> kEs);
     if (lane == 0 && nev > 0u) {
       const uint32_t w = evn >> 5, sh = evn & 31u;
       events[w] |= ev_w[0] << sh;
@@ -609,10 +702,10 @@ __global__ void ht_cleanup_encode_kernel(const Args a) {
       hdr[0] = evn + nev;
     }
     evn += nev;
-    const uint32_t mnext = base_m[1] + (tot1 & 4095u);
-    const uint32_t vnext = base_v[1] + ((tot1 >> 12) & 511u);
-    flush(ms_ring, kMsRing - 1, ms_out, a.ws, mbits >> 5, mnext >> 5, lane);
-    flush(vlc_ring, kVlcRing - 1, vlc_out, a.wv, vbits >> 5, vnext >> 5, lane);
+    const uint32_t mnext = base_m[1] + (tot1 & kMMask);
+    const uint32_t vnext = base_v[1] + ((tot1 >> kVs) & kVMask);
+    flush(ms_ring, kMsR - 1, ms_out, a.ws, mbits >> 5, mnext >> 5, lane);
+    flush(vlc_ring, kVlcR - 1, vlc_out, a.wv, vbits >> 5, vnext >> 5, lane);
     mbits = mnext;
     vbits = vnext;
     r = rn;
@@ -628,10 +721,10 @@ __global__ void ht_cleanup_encode_kernel(const Args a) {
     while ((mel_bits = hdr[1]) == 0xFFFFFFFFu) __nanosleep(32);
   } else if (lane == 1) {
     if ((vbits & 31u) && (vbits >> 5) < static_cast<uint32_t>(a.wv))
-      vlc_out[vbits >> 5] = vlc_ring[(vbits >> 5) & (kVlcRing - 1)];
+      vlc_out[vbits >> 5] = vlc_ring[(vbits >> 5) & (kVlcR - 1)];
   } else if (lane == 2) {
     if ((mbits & 31u) && (mbits >> 5) < static_cast<uint32_t>(a.ws))
-      ms_out[mbits >> 5] = ms_ring[(mbits >> 5) & (kMsRing - 1)];
+      ms_out[mbits >> 5] = ms_ring[(mbits >> 5) & (kMsR - 1)];
   }
   mel_bits = __shfl_sync(kFull, mel_bits, 0);
   const int used_m = static_cast<int>((mel_bits + 31u) >> 5);
@@ -648,27 +741,17 @@ __global__ void ht_cleanup_encode_kernel(const Args a) {
   zero_words(ms_out + used_s, a.ws - used_s, lane);
 }
 
-}  // namespace oje
-
-extern "C" {
-
-// buf [n, hp, wp] uint32 (wp a multiple of 4, 16-byte aligned); p, qhl [n]
-// int32; tables: enc_vlc0|1 (4,096) then enc_uvlc's prefix, prefix length,
-// suffix and suffix length columns (75 each), 16-byte aligned; cat
-// [n, wm + wv + ws] uint32 (every word is written); bits [n, 3] int32; ovf
-// [n] uint8.  ``threads``: codeblocks per CUDA block (two warps each),
-// clamped to [1, 16].  Returns the CUDA error code of the launch (0 on
-// success).
-int ht_cleanup_encode(const void* buf, int hp, int wp, const void* p,
-                      const void* qhl, const void* tables, void* cat, int wm,
-                      int wv, int ws, void* bits, void* ovf, int n, int width,
-                      int height, int threads, void* stream) {
+template <int B>
+int launch(const void* buf, int hp, int wp, const void* p, const void* qhl,
+           const void* tables, void* cat, int wm, int wv, int ws, void* bits,
+           void* ovf, int n, int width, int height, int threads,
+           void* stream) {
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   if (width < 1 || height < 1 || hp < 2 * ((height + 1) >> 1) ||
       wp < 2 * ((width + 1) >> 1) || (wp & 1) || wm < 0 || wv < 0 || ws < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  oje::Args a{};
-  a.buf = static_cast<const uint32_t*>(buf);
+  Args a{};
+  a.buf = buf;
   a.p = static_cast<const int32_t*>(p);
   a.qhl = static_cast<const int32_t*>(qhl);
   a.tables = static_cast<const uint32_t*>(tables);
@@ -689,8 +772,8 @@ int ht_cleanup_encode(const void* buf, int hp, int wp, const void* p,
     e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                dev);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const size_t per_cb = static_cast<size_t>(oje::cb_words(width, height)) * 4;
-  const size_t tables_bytes = static_cast<size_t>(oje::kSharedTables) * 4;
+  const size_t per_cb = static_cast<size_t>(cb_words<B>(width, height)) * 4;
+  const size_t tables_bytes = static_cast<size_t>(kSharedTables) * 4;
   int k = threads > 0 ? (threads < 16 ? threads : 16) : 1;
   while (k > 1 && tables_bytes + k * per_cb > static_cast<size_t>(optin))
     --k;
@@ -698,15 +781,44 @@ int ht_cleanup_encode(const void* buf, int hp, int wp, const void* p,
   if (smem > static_cast<size_t>(optin))
     return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(oje::ht_cleanup_encode_kernel,
+    e = cudaFuncSetAttribute(ht_cleanup_encode_kernel<B>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const int grid = (n + k - 1) / k;
-  oje::ht_cleanup_encode_kernel<<<grid, 64 * k, smem,
-                                  static_cast<cudaStream_t>(stream)>>>(a);
+  ht_cleanup_encode_kernel<B><<<grid, 64 * k, smem,
+                                static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace oje
+
+extern "C" {
+
+// buf [n, hp, wp] uint32 (wp a multiple of 4, 16-byte aligned); p, qhl [n]
+// int32; tables: enc_vlc0|1 (4,096) then enc_uvlc's prefix, prefix length,
+// suffix and suffix length columns (75 each), 16-byte aligned; cat
+// [n, wm + wv + ws] uint32 (every word is written); bits [n, 3] int32; ovf
+// [n] uint8.  ``threads``: codeblocks per CUDA block (two warps each),
+// clamped to [1, 16].  Returns the CUDA error code of the launch (0 on
+// success).
+int ht_cleanup_encode(const void* buf, int hp, int wp, const void* p,
+                      const void* qhl, const void* tables, void* cat, int wm,
+                      int wv, int ws, void* bits, void* ovf, int n, int width,
+                      int height, int threads, void* stream) {
+  return oje::launch<32>(buf, hp, wp, p, qhl, tables, cat, wm, wv, ws, bits,
+                         ovf, n, width, height, threads, stream);
+}
+
+// The 64-bit instantiation: buf [n, hp, wp] uint64, p = 63 - kmax; the
+// other arguments (and the tables) as above.
+int ht_cleanup_encode64(const void* buf, int hp, int wp, const void* p,
+                        const void* qhl, const void* tables, void* cat,
+                        int wm, int wv, int ws, void* bits, void* ovf, int n,
+                        int width, int height, int threads, void* stream) {
+  return oje::launch<64>(buf, hp, wp, p, qhl, tables, cat, wm, wv, ws, bits,
+                         ovf, n, width, height, threads, stream);
 }
 
 }  // extern "C"

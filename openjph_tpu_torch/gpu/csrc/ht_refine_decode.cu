@@ -71,6 +71,13 @@
 //     popcounts gives, each group's sign bits at its stored offset; each
 //     changed 16-byte piece of the step's rows is read, refined and
 //     written back.
+// 64-bit instantiation (entries ..._dense64 / ..._raw64): `dec` uint64, p
+// = 62 - missing_msbs, the sign in bit 63 (ojph_decode_codeblock64's
+// refinement, which the JAX package runs on its host for more than 30 bit
+// planes; no TPU kernel is behind it).  Only phases A and E touch samples,
+// so only they change: 8-byte samples, 64-bit shifts.  Shared memory holds
+// no samples, so a codeblock's words (ht_refine_warp_bytes) are the same
+// at both widths.
 // SigProp touches only samples that are not cleanup-significant and MagRef
 // only those that are.  K codeblocks (warps) share a CUDA block, ~5 KB of
 // shared memory each for a 64x64 block (with a slot through which the
@@ -79,6 +86,7 @@
 // on the caller's stream and allocates nothing.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace ojr {
@@ -106,6 +114,11 @@ bool g_tables_ready[kMaxDevices];
 
 __device__ __forceinline__ uint32_t shl32(uint32_t v, uint32_t n) {
   return n >= 32u ? 0u : v << n;
+}
+
+__device__ __forceinline__ unsigned long long shl64(unsigned long long v,
+                                                    uint32_t n) {
+  return n >= 64u ? 0ull : v << n;
 }
 
 // the samples above and below each sample of a column, as bits 4*col + row
@@ -442,7 +455,7 @@ __device__ __forceinline__ void sigprop_chain(const Src& spp,
 // ---- the kernel ----
 
 struct Args {
-  uint32_t* dec;
+  void* dec;
   // dense mode
   const uint32_t* spp;
   const uint32_t* mrp;
@@ -462,8 +475,10 @@ struct Args {
   int pack;  // a block's chains on its first warp (see phase D2)
 };
 
-template <bool RAW>
+template <bool RAW, int B>
 __global__ void ht_refine_kernel(const Args a) {
+  using T = typename std::conditional<B == 64, unsigned long long,
+                                      uint32_t>::type;
   extern __shared__ __align__(16) uint32_t smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -504,7 +519,7 @@ __global__ void ht_refine_kernel(const Args a) {
   uint32_t* res = ctx + g.grp_words;
   uint32_t* sbuf = res + g.grp_words;
   uint32_t* mbuf = sbuf + g.cap_spp + kBatchWords;
-  uint32_t* d = a.dec + static_cast<size_t>(live ? cb : 0) * H * W;
+  T* d = static_cast<T*>(a.dec) + static_cast<size_t>(live ? cb : 0) * H * W;
   const int hl = live ? a.h_lim[cb] : 0;
   const uint32_t pu = live ? static_cast<uint32_t>(a.p[cb]) : 0u;
   const bool causal = live && a.causal[cb] != 0;
@@ -516,7 +531,36 @@ __global__ void ht_refine_kernel(const Args a) {
     // phase A: the cleanup significance of rows below min(h_lim, H)
     for (int i = lane; i < g.grp_words; i += 32) res[i] = 0u;
     const int rows = hl < 0 ? 0 : (hl < H ? hl : H);
-    if (a.vec) {
+    if (B == 64 && a.vec) {
+      // as below, each group row two 16-byte reads of 8-byte samples
+      for (int i0 = lane; i0 < g.sig_words; i0 += 64) {
+        ulonglong2 v[2][4][2];
+  #pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int i = i0 + 32 * j, sy = i / gs, gx = i - sy * gs;
+  #pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int y = 4 * sy + r;
+            const bool in = i < g.sig_words && gx < g.n_gx && y < rows;
+  #pragma unroll
+            for (int hh = 0; hh < 2; ++hh)
+              v[j][r][hh] = in ? reinterpret_cast<const ulonglong2*>(
+                                     d + static_cast<size_t>(y) * W)[2 * gx + hh]
+                               : make_ulonglong2(0ull, 0ull);
+          }
+        }
+  #pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          uint32_t m = 0;
+  #pragma unroll
+          for (int r = 0; r < 4; ++r)
+            m |= ((v[j][r][0].x ? 1u : 0u) | (v[j][r][0].y ? 16u : 0u) |
+                  (v[j][r][1].x ? 256u : 0u) | (v[j][r][1].y ? 4096u : 0u))
+                 << r;
+          if (i0 + 32 * j < g.sig_words) sig[i0 + 32 * j] = m;
+        }
+      }
+    } else if (a.vec) {
       // a group a lane, two an iteration: their rows' 16-byte reads, all
       // issued before any is used; no atomics
       for (int i0 = lane; i0 < g.sig_words; i0 += 64) {
@@ -548,7 +592,7 @@ __global__ void ht_refine_kernel(const Args a) {
       for (int i = lane; i < g.sig_words; i += 32) sig[i] = 0u;
       __syncwarp();
       for (int i = lane; i < rows * W; i += 32) {
-        if (d[i] != 0u) {
+        if (d[i] != T(0)) {
           const int y = i / W, x = i - y * W;
           atomicOr(sig + (y >> 2) * gs + (x >> 2),
                    1u << (((x & 3) << 2) | (y & 3)));
@@ -616,9 +660,16 @@ __global__ void ht_refine_kernel(const Args a) {
     // offset.  SigProp: each group's sign bits at its stored offset.  Then
     // each row of the step with a changed sample is read, refined and
     // written back.
-    const uint32_t val16 = shl32(3u, pu - 2u);
-    const uint32_t half = shl32(1u, pu - 2u);
-    const uint32_t both = shl32(1u, pu - 1u) | half;
+    T val16, half, both;
+    if (B == 64) {
+      val16 = static_cast<T>(shl64(3ull, pu - 2u));
+      half = static_cast<T>(shl64(1ull, pu - 2u));
+      both = static_cast<T>(shl64(1ull, pu - 1u)) | half;
+    } else {
+      val16 = static_cast<T>(shl32(3u, pu - 2u));
+      half = static_cast<T>(shl32(1u, pu - 2u));
+      both = static_cast<T>(shl32(1u, pu - 1u)) | half;
+    }
     const bool mag = npasses >= 3;
     const int steps = nst * g.n_g2;
     uint32_t base_bit = 0;
@@ -651,21 +702,46 @@ __global__ void ht_refine_kernel(const Args a) {
       // sample x = 8 * g2 + c of row r is bit b = 4 * c + r of the step's
       // words; its bit of a stream is the one its rank among the set bits
       // names
-      auto refine = [&](int r, int c, uint32_t v) -> uint32_t {
+      auto refine = [&](int r, int c, T v) -> T {
         const int b = 4 * c + r;
         const uint32_t below = (1u << b) - 1u;
-        const uint32_t mv =
+        const T mv =
             v ^ (((mbits >> __popc(msig & below)) & 1u) ? half : both);
         const uint32_t sb = b < 16 ? sb0 >> __popc(nsig & below)
                                    : sb1 >> __popc(nsig & below & ~0xFFFFu);
         // a new sample was 0 (not cleanup-significant, in a row below
         // h_lim and H)
-        const uint32_t sv = ((sb & 1u) << 31) | val16;
+        const T sv = (static_cast<T>(sb & 1u) << (B - 1)) | val16;
         return ((msig >> b) & 1u) ? mv : (((nsig >> b) & 1u) ? sv : v);
       };
       const uint32_t chg = msig | nsig;
-      uint32_t* rows0 = d + static_cast<size_t>(4 * sy) * W + 8 * g2;
-      if (a.vec) {
+      T* rows0 = d + static_cast<size_t>(4 * sy) * W + 8 * g2;
+      if (B == 64 && a.vec) {
+        // as below, a group's row as two 16-byte pieces of 8-byte samples
+  #pragma unroll
+        for (int h4 = 0; h4 < 2; ++h4) {
+          ulonglong2 v[4][2];
+  #pragma unroll
+          for (int r = 0; r < 4; ++r)
+            if (4 * sy + r < H && (chg & (0x1111u << (16 * h4 + r))))
+  #pragma unroll
+              for (int hh = 0; hh < 2; ++hh)
+                v[r][hh] = reinterpret_cast<const ulonglong2*>(
+                    rows0 + static_cast<size_t>(r) * W)[2 * h4 + hh];
+  #pragma unroll
+          for (int r = 0; r < 4; ++r)
+            if (4 * sy + r < H && (chg & (0x1111u << (16 * h4 + r)))) {
+  #pragma unroll
+              for (int hh = 0; hh < 2; ++hh) {
+                ulonglong2 t = v[r][hh];
+                t.x = refine(r, 4 * h4 + 2 * hh, t.x);
+                t.y = refine(r, 4 * h4 + 2 * hh + 1, t.y);
+                reinterpret_cast<ulonglong2*>(
+                    rows0 + static_cast<size_t>(r) * W)[2 * h4 + hh] = t;
+              }
+            }
+        }
+      } else if (a.vec) {
         // a group at a time: its changed rows' 16-byte pieces read, then
         // refined and written
   #pragma unroll
@@ -680,10 +756,10 @@ __global__ void ht_refine_kernel(const Args a) {
           for (int r = 0; r < 4; ++r)
             if (4 * sy + r < H && (chg & (0x1111u << (16 * h4 + r)))) {
               uint4 t = v[r];
-              t.x = refine(r, 4 * h4, t.x);
-              t.y = refine(r, 4 * h4 + 1, t.y);
-              t.z = refine(r, 4 * h4 + 2, t.z);
-              t.w = refine(r, 4 * h4 + 3, t.w);
+              t.x = static_cast<uint32_t>(refine(r, 4 * h4, t.x));
+              t.y = static_cast<uint32_t>(refine(r, 4 * h4 + 1, t.y));
+              t.z = static_cast<uint32_t>(refine(r, 4 * h4 + 2, t.z));
+              t.w = static_cast<uint32_t>(refine(r, 4 * h4 + 3, t.w));
               reinterpret_cast<uint4*>(rows0 + static_cast<size_t>(r) * W)[h4] =
                   t;
             }
@@ -692,7 +768,7 @@ __global__ void ht_refine_kernel(const Args a) {
         for (int r = 0; r < 4 && 4 * sy + r < H; ++r)
           for (int c = 0; c < 8; ++c)
             if (chg & (1u << (4 * c + r))) {
-              uint32_t* at = rows0 + static_cast<size_t>(r) * W + c;
+              T* at = rows0 + static_cast<size_t>(r) * W + c;
               *at = refine(r, c, *at);
             }
       }
@@ -739,7 +815,7 @@ __host__ inline cudaError_t launch_shape(int n, int width, int height,
   return cudaSuccess;
 }
 
-template <bool RAW>
+template <bool RAW, int B>
 int launch(Args a, int per_block, cudaStream_t stream) {
   if (a.n <= 0) return static_cast<int>(cudaGetLastError());
   if (a.width < 1 || a.height < 1 || (!RAW && (a.ws < 1 || a.wm < 1)))
@@ -755,15 +831,61 @@ int launch(Args a, int per_block, cudaStream_t stream) {
   a.vec = (a.width & 3) == 0 &&
           (reinterpret_cast<uintptr_t>(a.dec) & 15u) == 0;
   if (s.smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(ht_refine_kernel<RAW>,
+    e = cudaFuncSetAttribute(ht_refine_kernel<RAW, B>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(s.smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   a.pack = s.pack;
   const int grid = (a.n + s.k - 1) / s.k;
-  ht_refine_kernel<RAW><<<grid, 32 * s.k, s.smem, stream>>>(a);
+  ht_refine_kernel<RAW, B><<<grid, 32 * s.k, s.smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace ojr
+
+namespace ojr {
+
+template <int B>
+int dense_entry(void* dec, const void* spp, const void* mrp, int ws, int wm,
+                const void* p, const void* npasses, const void* h_lim,
+                const void* causal, int n, int width, int height,
+                int per_block, void* stream) {
+  Args a{};
+  a.dec = dec;
+  a.spp = static_cast<const uint32_t*>(spp);
+  a.mrp = static_cast<const uint32_t*>(mrp);
+  a.ws = ws;
+  a.wm = wm;
+  a.p = static_cast<const int32_t*>(p);
+  a.npasses = static_cast<const int32_t*>(npasses);
+  a.h_lim = static_cast<const int32_t*>(h_lim);
+  a.causal = static_cast<const int32_t*>(causal);
+  a.n = n;
+  a.width = width;
+  a.height = height;
+  return launch<false, B>(a, per_block, static_cast<cudaStream_t>(stream));
+}
+
+template <int B>
+int raw_entry(void* dec, const void* blob, long long blob_bytes,
+              const void* roff, const void* len2, const void* p,
+              const void* npasses, const void* h_lim, const void* causal,
+              int n, int width, int height, int per_block, void* stream) {
+  Args a{};
+  a.dec = dec;
+  a.blob = static_cast<const uint8_t*>(blob);
+  a.blob_bytes = blob_bytes;
+  a.roff = static_cast<const int32_t*>(roff);
+  a.len2 = static_cast<const int32_t*>(len2);
+  a.p = static_cast<const int32_t*>(p);
+  a.npasses = static_cast<const int32_t*>(npasses);
+  a.h_lim = static_cast<const int32_t*>(h_lim);
+  a.causal = static_cast<const int32_t*>(causal);
+  a.n = n;
+  a.width = width;
+  a.height = height;
+  return launch<true, B>(a, per_block, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace ojr
@@ -811,20 +933,8 @@ int ht_refine_decode_dense(void* dec, const void* spp, const void* mrp,
                            const void* npasses, const void* h_lim,
                            const void* causal, int n, int width, int height,
                            int per_block, void* stream) {
-  ojr::Args a{};
-  a.dec = static_cast<uint32_t*>(dec);
-  a.spp = static_cast<const uint32_t*>(spp);
-  a.mrp = static_cast<const uint32_t*>(mrp);
-  a.ws = ws;
-  a.wm = wm;
-  a.p = static_cast<const int32_t*>(p);
-  a.npasses = static_cast<const int32_t*>(npasses);
-  a.h_lim = static_cast<const int32_t*>(h_lim);
-  a.causal = static_cast<const int32_t*>(causal);
-  a.n = n;
-  a.width = width;
-  a.height = height;
-  return ojr::launch<false>(a, per_block, static_cast<cudaStream_t>(stream));
+  return ojr::dense_entry<32>(dec, spp, mrp, ws, wm, p, npasses, h_lim,
+                              causal, n, width, height, per_block, stream);
 }
 
 // Raw mode: blob [blob_bytes] uint8; lane i's refinement segment is
@@ -834,20 +944,30 @@ int ht_refine_decode_raw(void* dec, const void* blob, long long blob_bytes,
                          const void* npasses, const void* h_lim,
                          const void* causal, int n, int width, int height,
                          int per_block, void* stream) {
-  ojr::Args a{};
-  a.dec = static_cast<uint32_t*>(dec);
-  a.blob = static_cast<const uint8_t*>(blob);
-  a.blob_bytes = blob_bytes;
-  a.roff = static_cast<const int32_t*>(roff);
-  a.len2 = static_cast<const int32_t*>(len2);
-  a.p = static_cast<const int32_t*>(p);
-  a.npasses = static_cast<const int32_t*>(npasses);
-  a.h_lim = static_cast<const int32_t*>(h_lim);
-  a.causal = static_cast<const int32_t*>(causal);
-  a.n = n;
-  a.width = width;
-  a.height = height;
-  return ojr::launch<true>(a, per_block, static_cast<cudaStream_t>(stream));
+  return ojr::raw_entry<32>(dec, blob, blob_bytes, roff, len2, p, npasses,
+                            h_lim, causal, n, width, height, per_block,
+                            stream);
+}
+
+// The 64-bit instantiations: dec [n, height, width] uint64, p = 62 -
+// missing_msbs; the other arguments as above.
+int ht_refine_decode_dense64(void* dec, const void* spp, const void* mrp,
+                             int ws, int wm, const void* p,
+                             const void* npasses, const void* h_lim,
+                             const void* causal, int n, int width,
+                             int height, int per_block, void* stream) {
+  return ojr::dense_entry<64>(dec, spp, mrp, ws, wm, p, npasses, h_lim,
+                              causal, n, width, height, per_block, stream);
+}
+
+int ht_refine_decode_raw64(void* dec, const void* blob, long long blob_bytes,
+                           const void* roff, const void* len2, const void* p,
+                           const void* npasses, const void* h_lim,
+                           const void* causal, int n, int width, int height,
+                           int per_block, void* stream) {
+  return ojr::raw_entry<64>(dec, blob, blob_bytes, roff, len2, p, npasses,
+                            h_lim, causal, n, width, height, per_block,
+                            stream);
 }
 
 }  // extern "C"

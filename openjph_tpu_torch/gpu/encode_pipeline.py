@@ -14,6 +14,14 @@ device, the host copies it once and the native stuffer
 (ojph_block_encoder.cpp:273-533; the OpenJPH encoder emits only the
 cleanup pass).  A burst of same-geometry frames is batched along the
 lanes: frame f of group g occupies lanes [f*n_pad, (f+1)*n_pad).
+
+A reversible band of kmax >= 31 (ROADMAP 7c) is coded as the JAX
+package's scalar Encoder codes it (codec.py:742-857): samples of more
+than 28 bits converted in int64, the RCT and the forward 5/3 of such a
+frame in int64, and the band's codeblocks in lane groups of their own,
+quantized to uint64 patterns (p = 63 - kmax) for the HT cleanup
+encoder's 64-bit instantiation.  The coded words are uint32 at either
+width, so stuffing and Tier-2 do not change.
 """
 from __future__ import annotations
 
@@ -36,15 +44,12 @@ from . import block_encode_cuda
 from . import color as clr
 from . import dwt
 from .block_encode_cuda import encode_cleanup
-from .pipeline import _Cache, _res_band_list, resolve_device
+from .pipeline import _Cache, _res_band_list, _wide, resolve_device
 from .quant import tx_to_cb
 from .staging import Stager
 
 _ROADMAP_MULTIPASS = ('multi-pass (SigProp/MagRef) encoding is not ported '
                       'yet: ROADMAP.md Queue A, "Multi-pass encode"')
-_ROADMAP_WIDE = ('a band of 31 or more bit planes is not ported to the '
-                 'fused encode yet: ROADMAP.md Queue A, "Resilient decode '
-                 'and fused-path coverage contracts", 7c')
 
 
 def _ebucket(n: int) -> int:
@@ -83,6 +88,8 @@ class _EncGroup:
     thresh: list = field(default_factory=list)   # zero-block threshold
     n_pad: int = 0                               # lanes, padded to 8
     caps: tuple = (0, 0, 0)                      # dense word caps
+    # 64: a wide band's group (uint64 samples, p = 63 - kmax)
+    bits: int = 32
 
 
 @dataclass
@@ -101,7 +108,8 @@ class _EncRunner:
     """The fused encode of ``nframes`` same-geometry frames on
     ``device``.  ``graph(*planes)`` takes per component a [nframes, h,
     w] tensor of the narrow upload dtype and returns per lane group its
-    sample batch (int32 [nframes*n_pad, hp, wp]) and zero-block flags;
+    sample batch (int32 [nframes*n_pad, hp, wp], int64 for a wide band's
+    group) and zero-block flags;
     ``tier1(batches)`` runs the HT cleanup encoder per group and returns
     (cats, aux): the per-group word rows [nframes*n_pad, wm+wv+ws] and
     one int32 buffer of every group's bit counts, then its non-zero
@@ -132,13 +140,22 @@ class _EncRunner:
         plan, F = self.plan, self.F
         conv = []
         for ci, (rev, bd, sgn, nlt3, _, _) in enumerate(plan.comps):
-            pl32 = planes[ci].to(torch.int32)
             if rev:
-                conv.append(clr.rev_convert_in(pl32, bd, sgn, nlt3))
+                conv.append(clr.rev_convert_in(
+                    planes[ci], bd, sgn, nlt3,
+                    torch.int64 if bd > 28 else torch.int32))
             else:
-                conv.append(clr.irv_convert_to_float(pl32, bd, sgn, nlt3))
+                conv.append(clr.irv_convert_to_float(
+                    planes[ci].to(torch.int32), bd, sgn, nlt3))
         if plan.mct:
-            fwd = clr.rct_forward if plan.comps[0][0] else clr.ict_forward
+            if plan.comps[0][0]:
+                if any(bd > 28 for (_, bd, _, _, _, _) in plan.comps[:3]):
+                    # the RCT of a frame above 28 bits runs in int64
+                    # (codec.py:748-756)
+                    conv[:3] = [c.to(torch.int64) for c in conv[:3]]
+                fwd = clr.rct_forward
+            else:
+                fwd = clr.ict_forward
             conv[0], conv[1], conv[2] = fwd(conv[0], conv[1], conv[2])
 
         # DWT pyramids -> per-band sign-magnitude planes and magnitudes
@@ -174,7 +191,8 @@ class _EncRunner:
         for g, thresh in zip(plan.groups, self.thresh):
             wp = ((g.w + 3) // 4) * 4
             hp = ((g.h + 1) // 2) * 2
-            buf = torch.zeros((F, g.n_pad, hp, wp), dtype=torch.int32,
+            buf = torch.zeros((F, g.n_pad, hp, wp), dtype=torch.int64
+                              if g.bits == 64 else torch.int32,
                               device=self.device)
             mx = torch.zeros((F, len(g.lanes)), dtype=torch.int64,
                              device=self.device)
@@ -188,7 +206,13 @@ class _EncRunner:
                         .permute(0, 1, 3, 2, 4).reshape(F, nl, h_t, g.w)
 
                 buf[:, lane0:lane0 + nl, :h_t, :g.w] = blocks(smag[bid])
-                mx[:, lane0:lane0 + nl] = blocks(mags[bid]).amax((2, 3))
+                m = mags[bid]
+                if g.bits == 64:
+                    # a magnitude is a multiple of the threshold, so it
+                    # reaches it when it is not 0 (a uint64 one may read
+                    # as negative in int64)
+                    m = (m != 0).to(torch.int64) << (63 - plan.bands[bid][3])
+                mx[:, lane0:lane0 + nl] = blocks(m).amax((2, 3))
             # the OR of a block's magnitudes reaches the power-of-two
             # threshold exactly when their maximum does
             out.append((buf.reshape(F * g.n_pad, hp, wp), mx >= thresh))
@@ -286,9 +310,10 @@ class GpuEncoder(Encoder):
     default; 'cpu' runs the kernel's plain version).  Byte stuffing and
     Tier-2 run on the host.  Part-2 decomposition structures
     (``dfs_list=``) and wavelet kernels (``atks=``) are taken as the JAX
-    package's Encoder takes them.  Configurations outside this slice
-    (multi-pass codeblocks, bands of 31 or more bit planes) raise
-    NotImplementedError naming their ROADMAP.md item."""
+    package's Encoder takes them.  Bands of 31 or more bit planes are
+    coded by the HT cleanup encoder's 64-bit instantiation.  Multi-pass
+    codeblocks, outside this slice, raise NotImplementedError naming
+    their ROADMAP.md item."""
 
     def __init__(self, *args, device='cuda', **kwargs):
         self.device = resolve_device(device)
@@ -311,25 +336,28 @@ class GpuEncoder(Encoder):
                 bids = []
                 for b in _res_band_list(res, r):
                     sb = res.bands[b]
-                    if sb.kmax >= 31:
-                        raise NotImplementedError(_ROADMAP_WIDE)
+                    # a wide band's samples are uint64 (codec.py:828-829)
+                    wide = _wide(sb.kmax, rev)
+                    top = 63 if wide else 31
                     bid = len(bands)
                     bands.append((c, r, b, sb.kmax, float(sb.delta),
                                   rev, sb.rect.h, sb.rect.w))
                     bids.append(bid)
                     run = None  # (lane0, ncols, h_true, y0, x0, gid)
                     for bi, g in enumerate(sb.blocks):
-                        # lanes group by block width only: shorter
-                        # blocks pad with zero rows and stop at qhl
-                        grp = groups.get(g.rect.w)
+                        # lanes group by block width and sample width:
+                        # shorter blocks pad with zero rows and stop at
+                        # qhl
+                        grp = groups.get((g.rect.w, wide))
                         if grp is None:
-                            grp = _EncGroup(len(groups), g.rect.w)
-                            groups[g.rect.w] = grp
+                            grp = _EncGroup(len(groups), g.rect.w,
+                                            bits=64 if wide else 32)
+                            groups[(g.rect.w, wide)] = grp
                         lane = len(grp.lanes)
                         grp.lanes.append((bid, bi, g.rect.h))
                         grp.h = max(grp.h, g.rect.h)
-                        grp.p.append(31 - sb.kmax)
-                        grp.thresh.append(1 << (31 - sb.kmax))
+                        grp.p.append(top - sb.kmax)
+                        grp.thresh.append(1 << (top - sb.kmax))
                         y0 = g.rect.y0 - sb.rect.y0
                         x0 = g.rect.x0 - sb.rect.x0
                         if run is not None \
@@ -376,17 +404,19 @@ class GpuEncoder(Encoder):
         mct = self.cod.mc_trans == 1 and nc >= 3
         for g in glist:
             # worst-case dense output words per lane: overflow cannot
-            # happen, and the flag is checked all the same
+            # happen, and the flag is checked all the same (a pair's VLC
+            # bits: at most 30, 38 with the 64-bit u_q extensions)
             qw = (g.w + 1) >> 1
             qh = (g.h + 1) >> 1
             pairs = (qw + 1) >> 1
-            kx = 31 - min(g.p)
+            kx = g.bits - 1 - min(g.p)
+            vlc = 42 if g.bits == 64 else 34
             g.caps = (_ebucket(qh * pairs * 18 // 32 + 2),
-                      _ebucket(qh * pairs * 34 // 32 + 2),
+                      _ebucket(qh * pairs * vlc // 32 + 2),
                       _ebucket(qw * qh * 4 * (kx + 1) // 32 + 2))
             g.n_pad = -(-len(g.lanes) // 8) * 8
         key = (tuple((g.gid, g.w, g.h, len(g.lanes), tuple(g.strips),
-                      tuple(g.p), g.caps) for g in glist),
+                      tuple(g.p), g.caps, g.bits) for g in glist),
                tuple(bands), tuple(comps), mct)
         return _EncPlan(key, glist, bands, comps, mct)
 
@@ -469,14 +499,15 @@ def encode_gpu(planes, device='cuda', **kwargs) -> bytes:
 
 
 def _narrow_dtype_for(siz, c):
-    """Smallest upload dtype for component c's samples."""
+    """Smallest upload dtype for component c's samples; int64 above 28
+    bits, which the JAX package's encoder converts in int64."""
     bd = siz.comps[c].bit_depth
     sgn = siz.comps[c].is_signed
     if bd <= 8:
         return np.int8 if sgn else np.uint8
     if bd <= 16:
         return np.int16 if sgn else np.uint16
-    return np.int32
+    return np.int32 if bd <= 28 else np.int64
 
 
 def _narrow_tile_plane(siz, geom, c, plane):

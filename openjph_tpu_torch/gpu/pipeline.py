@@ -17,6 +17,20 @@ Two runner modes: ``raw=True`` ships one buffer (the stuffed segment
 bytes plus per-lane meta) and the kernels unstuff them;
 ``raw=False`` ships host-unstuffed dense words plus meta.  A plan with
 multi-pass codeblocks adds a second meta plane (rmeta) per lane.
+
+Codeblocks of more than 30 bit planes (ROADMAP 7c) run on the kernels'
+64-bit instantiations.  A reversible band of kmax >= 31 (a wide band)
+has lane groups of its own, decoded in 64 bits; so is a narrow band's
+group for a frame in which one of its live lanes has missing_msbs >= 30,
+which only a corrupt packet header gives.  Each lane then ends as the
+JAX package's host decoder leaves it (coding/decoder.py decodes
+missing_msbs >= 30 in 64 bits, fewer in 32; codec.py's _tx_from_cb
+reads a pattern by its band's width): in int64 band planes for wide
+bands, int32 ones for the others.  A frame with a wide band reconstructs
+as that host decoder does (codec.py:302-303, 376-390): the DWT in the
+bands' own widths, the RCT and the sample conversion in int64, and the
+output unclamped, int64 for unsigned 32-bit components and int32 for
+the rest.
 """
 from __future__ import annotations
 
@@ -38,6 +52,7 @@ from . import block_decode_cuda, block_refine_cuda
 from . import color as clr
 from . import dwt
 from .bitprep import prep_cleanup_streams
+from .block_decode import srl
 from .block_decode_cuda import decode_cleanup, decode_cleanup_raw
 from .block_refine import prep_refine_streams
 from .block_refine_cuda import refine, refine_raw
@@ -48,10 +63,6 @@ from .staging import Stager
 # (its device window fetch read rows of this many words), so the two
 # packers produce identical buffers.
 _ROW = 512
-
-_ROADMAP_WIDE = ('codeblocks of more than 30 bit planes are not ported '
-                 'yet: ROADMAP.md Queue A, "Resilient decode and '
-                 'fused-path coverage contracts", 7c')
 
 
 def resolve_device(device) -> torch.device:
@@ -103,6 +114,9 @@ class _Group:
     words: Tuple[int, int, int] = (0, 0, 0)
     # refine-stream word widths (0, 0) when no lane has SigProp/MagRef
     rwords: Tuple[int, int] = (0, 0)
+    # sample width of the group's decode: 64 for a wide band's group, or
+    # where a live lane has missing_msbs >= 30
+    bits: int = 32
 
 
 @dataclass
@@ -113,7 +127,9 @@ class _Plan:
     placements: List[tuple]
     # band_id -> (H, W, kmax, delta, reversible)
     bands: List[tuple]
-    # per tile: (mct, (comp struct, ...), narrow_ok)
+    # per tile: (mct, (comp struct, ...), narrow_ok), and True after them
+    # where the frame has a wide band and reconstructs as the host decoder
+    # does; a frame without one has the JAX package's key
     tiles: List[tuple]
     # per-lane arrays in meta order (pos, lcup, scup, p, qhl, npasses,
     # len2, h_true, causal); pos == -1 marks a dead/padding lane
@@ -152,7 +168,7 @@ class _Skel:
 
 class _SkelGroup:
     __slots__ = ('gid', 'w', 'h', 'n_pad', 'nm', 'qh_geom', 'h_geom',
-                 'causal_geom', 'segs')
+                 'causal_geom', 'segs', 'wide')
 
 
 _SKELS: 'OrderedDict' = OrderedDict()
@@ -203,9 +219,11 @@ def _build_skeleton(dec, tile_indices):
     placements = []
     bands = []
     tiles = []
-    groups: Dict[int, _SkelGroup] = {}
+    # lane groups by (block width, wide band)
+    groups: Dict[tuple, _SkelGroup] = {}
     sel_idx = (range(len(dec.tiles)) if tile_indices is None
                else tile_indices)
+    host_out = any(dec._wide_band(dec.tiles[idx]) for idx in sel_idx)
     # ti: the tile's place in sel_idx (_plan_skeleton)
     for ti, idx in enumerate(sel_idx):
         st = dec.tiles[idx]
@@ -225,6 +243,7 @@ def _build_skeleton(dec, tile_indices):
                     bands.append((sb.rect.h, sb.rect.w, sb.kmax,
                                   float(sb.delta), rev))
                     bids.append(bid)
+                    wide = _wide(sb.kmax, rev)
                     grp0 = None
                     seg_idx = []
                     seg_qh = []
@@ -232,7 +251,7 @@ def _build_skeleton(dec, tile_indices):
                     causal = cod.vert_causal
                     run = None  # (gid, lane0, ncols, h_true, y0, x0)
                     for g in sb.blocks:
-                        grp = groups.get(g.rect.w)
+                        grp = groups.get((g.rect.w, wide))
                         if grp is None:
                             grp = _SkelGroup()
                             grp.gid = len(groups)
@@ -243,7 +262,8 @@ def _build_skeleton(dec, tile_indices):
                             grp.h_geom = []
                             grp.causal_geom = []
                             grp.segs = []
-                            groups[g.rect.w] = grp
+                            grp.wide = wide
+                            groups[(g.rect.w, wide)] = grp
                         if grp0 is not None and grp is not grp0 \
                                 and seg_idx:
                             grp0.segs.append(
@@ -295,7 +315,8 @@ def _build_skeleton(dec, tile_indices):
         # narrowing to 8/16-bit is only valid at full reconstruction:
         # skipped-resolution output is LL coefficients with DWT gain,
         # which legitimately exceed the nominal sample range
-        tiles.append((mct, tuple(tile_comps), dec.skip_recon == 0))
+        tiles.append((mct, tuple(tile_comps), dec.skip_recon == 0)
+                     + ((True,) if host_out else ()))
 
     glist = sorted(groups.values(), key=lambda g: g.gid)
     for grp in glist:
@@ -326,6 +347,19 @@ def _build_skeleton(dec, tile_indices):
     return skel
 
 
+def _wide(kmax: int, reversible: bool) -> bool:
+    """A band the host decoder reconstructs in 64 bits (codec.py:302)."""
+    return reversible and kmax >= 31
+
+
+def _key_group(g: _Group) -> tuple:
+    """A group's part of the plan key: the JAX package's (gid, w, h,
+    n_pad, words, rwords), and 64 after it for a 64-bit group, so that a
+    stream the JAX fused path takes has the JAX package's key."""
+    return (g.gid, g.w, g.h, g.n_pad, g.words, g.rwords) \
+        + ((64,) if g.bits == 64 else ())
+
+
 def _broken_lanes(mm, npss, l0, l1, nb, poss, live, buf):
     """The host decoder's per-codeblock checks (decode_codeblock,
     coding/decoder.py:163-213), in its order, over a group's lanes.
@@ -348,7 +382,9 @@ def _broken_lanes(mm, npss, l0, l1, nb, poss, live, buf):
     code = np.select([short, many, huge, tiny, bad_scup],
                      [1, 2, 3, 4, 5], 0)
     code = np.where(live, code, 0)
-    npss = np.where(mm == 29, 1, npss)
+    # one pass where the decoder's width has no room for a refinement
+    # plane: missing_msbs 29 in 32 bits, 61 in 64
+    npss = np.where((mm == 29) | (mm == 61), 1, npss)
     return code, npss, scup
 
 
@@ -363,11 +399,12 @@ _BROKEN = ('ojph error 0x00080002: wrong codeblock length',
 def _build_plan(dec, tile_indices=None) -> _Plan:
     """Per-frame plan from the Tier-2 record arrays.  A live lane that
     the host decoder would refuse (short coded bytes, more than 3
-    passes, lcup < 2, a bad scup) raises its ValueError, or under
-    ``dec.resilient`` is planned as a dead lane (a zero block) and
-    counted in ``plan.broken``.  Lanes of more than 30 bit planes raise
-    NotImplementedError.  ``tile_indices`` restricts the plan to a
-    subset of tiles."""
+    passes, missing_msbs >= 62, lcup < 2, a bad scup) raises its
+    ValueError, or under ``dec.resilient`` is planned as a dead lane (a
+    zero block) and counted in ``plan.broken``.  A group decodes in 64
+    bits (p = 62 - missing_msbs) when it is a wide band's, or when one of
+    its live lanes has missing_msbs >= 30.  ``tile_indices`` restricts
+    the plan to a subset of tiles."""
     skel = _plan_skeleton(dec, tile_indices)
     sel_idx = (range(len(dec.tiles)) if tile_indices is None
                else tile_indices)
@@ -404,14 +441,14 @@ def _build_plan(dec, tile_indices=None) -> _Plan:
             # (ojph_codeblock.cpp:214-225, ojph_precinct.cpp:558-568)
             broken += int(np.count_nonzero(code))
             live = live & (code == 0)
-        if bool(np.any(live & (mm >= 30))):
-            raise NotImplementedError(_ROADMAP_WIDE)
+        bits = 64 if g.wide or bool(np.any(live & (mm >= 30))) else 32
+        pbase = bits - 2
         l1 = np.where(npss <= 1, 0, l1)
         pad = g.n_pad - g.nm
         lcup_a = np.where(live, l0, 2).astype(np.int64)
         scup_a = np.where(live, scup, 2).astype(np.int64)
         pos_a = np.where(live, poss, -1)
-        p_a = np.where(live, 30 - mm, 30).astype(np.int32)
+        p_a = np.where(live, pbase - mm, pbase).astype(np.int32)
         qhl_a = np.where(live, g.qh_geom, 0).astype(np.int32)
         np_a = np.where(live, npss, 1).astype(np.int32)
         l2_a = np.where(live, l1, 0).astype(np.int64)
@@ -423,7 +460,7 @@ def _build_plan(dec, tile_indices=None) -> _Plan:
             scup_a = np.concatenate(
                 [scup_a, np.full(pad, 2, np.int64)])
             pos_a = np.concatenate([pos_a, np.full(pad, -1, np.int64)])
-            p_a = np.concatenate([p_a, np.full(pad, 30, np.int32)])
+            p_a = np.concatenate([p_a, np.full(pad, pbase, np.int32)])
             qhl_a = np.concatenate([qhl_a, np.zeros(pad, np.int32)])
             np_a = np.concatenate([np_a, np.ones(pad, np.int32)])
             l2_a = np.concatenate([l2_a, np.zeros(pad, np.int64)])
@@ -445,9 +482,9 @@ def _build_plan(dec, tile_indices=None) -> _Plan:
             rwords = (wr, wr)
             any_refine = True
         grp = _Group(g.gid, g.w, g.h, members=[None] * g.nm,
-                     n_pad=g.n_pad, words=words, rwords=rwords)
+                     n_pad=g.n_pad, words=words, rwords=rwords, bits=bits)
         glist.append(grp)
-        key_groups.append((g.gid, g.w, g.h, g.n_pad, words, rwords))
+        key_groups.append(_key_group(grp))
         pos_l.append(pos_a)
         lcup_l.append(lcup_a)
         scup_l.append(scup_a)
@@ -541,14 +578,16 @@ class _Runner:
             if self.raw:
                 # meta: lane_off, ms_n, sh_n, 0, 0, 0, p, qhl
                 outs.append(decode_cleanup_raw(src, col[0], col[1], col[2],
-                                               p, g.w, g.h, qhl, g.words))
+                                               p, g.w, g.h, qhl, g.words,
+                                               g.bits))
             else:
                 # meta: mel_off, lm, vlc_off, lv, ms_off, ls, p, qhl
                 wm, wv, ws = g.words
                 mel = _window(src, col[0], col[1], wm, -1)
                 vlc = _window(src, col[2], col[3], wv, 0)
                 ms = _window(src, col[4], col[5], ws, -1)
-                outs.append(decode_cleanup(mel, vlc, ms, p, g.w, g.h, qhl))
+                outs.append(decode_cleanup(mel, vlc, ms, p, g.w, g.h, qhl,
+                                           g.bits))
         return outs
 
     def refine(self, src, views, outs):
@@ -575,13 +614,19 @@ class _Runner:
     def mask(self, views, outs):
         """Dead and broken lanes decode to zero blocks (the caller raises
         on the error flags, or under resilience keeps the zero blocks,
-        as the reference does).  Returns (decs [F, n_pad,
-        h, w] per group, errs of the groups' members)."""
+        as the reference does).  In a 64-bit group a lane of missing_msbs
+        < 30 (p = 62 - missing_msbs > 32) becomes the uint32 pattern the
+        host decoder's 32-bit decode gives: the 64-bit one shifted down by
+        32.  Returns (decs [F, n_pad, h, w] per group, errs of the groups'
+        members)."""
         F = self.F
         decs, errs = [], []
         for (g, col, _), (d, e) in zip(views, outs):
             ok = (col[7] > 0) & ~e
             d = torch.where(ok[:, None, None], d, torch.zeros_like(d))
+            if g.bits == 64:
+                d = torch.where((col[6] <= 32)[:, None, None], d,
+                                srl(d, 32))
             decs.append(d.reshape(F, g.n_pad, g.h, g.w))
             errs.append(e.reshape(F, g.n_pad)[:, :len(g.members)]
                         .reshape(-1))
@@ -590,13 +635,15 @@ class _Runner:
     def rest(self, decs):
         F = self.F
         plan = self.plan
-        planes = [torch.zeros((F, H, W), dtype=torch.int32,
+        planes = [torch.zeros((F, H, W), dtype=torch.int64
+                              if _wide(kmax, rev) else torch.int32,
                               device=self.device)
-                  for (H, W, _, _, _) in plan.bands]
+                  for (H, W, kmax, _, rev) in plan.bands]
         for (gid, lane0, nrows, ncols, h_t, y0, bid, x0) in \
                 plan.placements:
             w_t = plan.groups[gid].w
-            d = decs[gid][:, lane0:lane0 + nrows * ncols, :h_t, :w_t]
+            d = _as_band(decs[gid][:, lane0:lane0 + nrows * ncols, :h_t, :w_t],
+                         planes[bid].dtype)
             strip = d.reshape(F, nrows, ncols, h_t, w_t) \
                 .permute(0, 1, 3, 2, 4) \
                 .reshape(F, nrows * h_t, ncols * w_t)
@@ -606,7 +653,7 @@ class _Runner:
                for i, (_, _, kmax, delta, rev) in enumerate(plan.bands)]
 
         outs = []
-        for (mct, comps, narrow_ok) in plan.tiles:
+        for (mct, comps, narrow_ok, *host_out) in plan.tiles:
             rec = []
             for (res_specs, rev, bd, sgn, nlt3, kern) in comps:
                 plane = deq[res_specs[0][0][0]]
@@ -629,6 +676,8 @@ class _Runner:
                 rec.append(plane)
             if mct:
                 if comps[0][1]:
+                    if host_out:
+                        rec[:3] = [r.to(torch.int64) for r in rec[:3]]
                     rec[0], rec[1], rec[2] = clr.rct_backward(
                         rec[0], rec[1], rec[2])
                 else:
@@ -636,6 +685,18 @@ class _Runner:
                         rec[0], rec[1], rec[2])
             conv = []
             for ci, (res_specs, rev, bd, sgn, nlt3, _) in enumerate(comps):
+                if host_out:
+                    # as the host decoder: int64 conversion, unclamped
+                    # (codec.py:376-390)
+                    if rev:
+                        c = clr.rev_convert_out(rec[ci].to(torch.int64),
+                                                bd, sgn, nlt3)
+                    else:
+                        c = clr.irv_convert_to_integer(rec[ci], bd, sgn,
+                                                       nlt3)
+                    conv.append(c.to(torch.int64 if rev and bd >= 32
+                                     and not sgn else torch.int32))
+                    continue
                 if rev:
                     c = clr.rev_convert_out(rec[ci], bd, sgn, nlt3)
                 else:
@@ -651,6 +712,21 @@ class _Runner:
                 conv.append(c.to(dtype))
             outs.append(tuple(conv))
         return tuple(outs)
+
+
+def _as_band(d, dtype):
+    """A group's decoded lanes as a band's samples: int64 patterns
+    (64-bit groups) into an int32 (narrow) plane as the host decoder's
+    32-bit reading takes them (codec.py _tx_from_cb: the low 31 bits, and
+    the sign where any bit from 31 up is set), int32 patterns into an
+    int64 (wide) plane zero-extended."""
+    if d.dtype == dtype:
+        return d
+    if dtype == torch.int64:
+        return d.to(torch.int64) & 0xFFFFFFFF
+    neg = srl(d, 31) != 0
+    low = (d & 0x7FFFFFFF).to(torch.int32)
+    return torch.where(neg, low | torch.iinfo(torch.int32).min, low)
 
 
 def _window(words, off, ln, width: int, guard: int):
@@ -899,8 +975,11 @@ class GpuDecoder(Decoder):
     after their cleanup pass.  A broken codeblock raises ValueError, or
     under ``resilient=True`` decodes to a zero block with warning
     0x00080006 (once per decode); ``zeroed`` then holds how many were
-    zeroed (plan, kernel error flags).  Streams of more than 30 bit
-    planes raise NotImplementedError naming their ROADMAP.md item."""
+    zeroed (plan, kernel error flags).  Codeblocks of more than 30 bit
+    planes decode on the kernels' 64-bit instantiations; a frame with a
+    reversible band of kmax >= 31 returns what the JAX package's host
+    decoder returns for it: unclamped samples, int64 for unsigned 32-bit
+    components, int32 otherwise."""
 
     def __init__(self, data: bytes, device='cuda', raw: bool = True,
                  **kwargs):
@@ -912,8 +991,6 @@ class GpuDecoder(Decoder):
 
     @torch.inference_mode()
     def decode(self) -> List[np.ndarray]:
-        if self._any_wide_band():
-            raise NotImplementedError(_ROADMAP_WIDE)
         with trace.stage('decode.plan'):
             plan = _build_plan(self)
         return self._decode_fast(plan)
@@ -923,15 +1000,15 @@ class GpuDecoder(Decoder):
 
     def _wide_band(self, st) -> bool:
         """Whether tile ``st`` has a reversible band of 31 or more bit
-        planes (ROADMAP.md item 7c)."""
+        planes, at any resolution (the JAX package's
+        TpuDecoder._any_wide_band, tpu/pipeline.py:1224-1235)."""
         for c, comp in enumerate(st.geom.comps):
-            if not self.hdr.get_cod(c).is_reversible:
-                continue
+            rev = self.hdr.get_cod(c).is_reversible
             for res in comp.resolutions:
                 for b in range(4):
                     sb = res.bands[b]
                     if sb is not None and not sb.empty \
-                            and sb.kmax >= 31:
+                            and _wide(sb.kmax, rev):
                         return True
         return False
 
@@ -1098,8 +1175,8 @@ def _burst_runner(plan: _Plan, nframes: int, device, raw: bool,
 
 
 def _geometry_key(key: tuple) -> tuple:
-    """A plan key without its groups' word buckets, which depend on the
-    frame's coded bytes."""
+    """A plan key without its groups' word buckets and sample widths,
+    which depend on the frame's coded bytes."""
     return (tuple(g[:4] for g in key[0]),) + key[1:]
 
 
@@ -1108,20 +1185,38 @@ def _merge_words(plans: List[_Plan]) -> List[_Plan]:
     at the largest word buckets of any frame (a bucket bounds what a
     lane's reader may read, and the stream rows are filled past each
     lane's bytes as past the bucket, so a frame decodes the same under
-    a larger one)."""
+    a larger one), and in 64 bits where any frame's is (its lanes' p
+    move up by 32, and _Runner.mask takes the 32-bit patterns back)."""
     if len({p.key for p in plans}) == 1:
         return plans
+    ng = len(plans[0].groups)
     words = [tuple(max(p.groups[i].words[k] for p in plans)
-                   for k in range(3)) for i in range(len(plans[0].groups))]
+                   for k in range(3)) for i in range(ng)]
     rwords = [tuple(max(p.groups[i].rwords[k] for p in plans)
-                    for k in range(2)) for i in range(len(plans[0].groups))]
-    key = (tuple(kg[:4] + (w, rw) for kg, w, rw in
-                 zip(plans[0].key[0], words, rwords)),) + plans[0].key[1:]
+                    for k in range(2)) for i in range(ng)]
+    bits = [max(p.groups[i].bits for p in plans) for i in range(ng)]
+    groups = [replace(g, words=w, rwords=rw, bits=b) for g, w, rw, b in
+              zip(plans[0].groups, words, rwords, bits)]
+    key = (tuple(_key_group(g) for g in groups),) + plans[0].key[1:]
     return [replace(p, key=key,
-                    groups=[replace(g, words=w, rwords=rw) for g, w, rw in
-                            zip(p.groups, words, rwords)],
+                    groups=[replace(g, words=w, rwords=rw, bits=b)
+                            for g, w, rw, b in
+                            zip(p.groups, words, rwords, bits)],
+                    lanes=_widen_lanes(p, bits),
                     has_refine=any(rw[0] > 0 for rw in rwords))
             for p in plans]
+
+
+def _widen_lanes(plan: _Plan, bits) -> tuple:
+    """``plan.lanes`` with p = 62 - missing_msbs on the lanes of every
+    group that ``bits`` widens to 64."""
+    p = plan.lanes[3].copy()
+    at = 0
+    for g, b in zip(plan.groups, bits):
+        if b > g.bits:
+            p[at:at + g.n_pad] += 32
+        at += g.n_pad
+    return plan.lanes[:3] + (p,) + plan.lanes[4:]
 
 
 def _decoders(streams, device, raw: bool, resilient: bool,
@@ -1132,9 +1227,7 @@ def _decoders(streams, device, raw: bool, resilient: bool,
 
 
 def _plan_frame(dec: GpuDecoder) -> _Plan:
-    """``dec``'s plan, with GpuDecoder.decode's refusals."""
-    if dec._any_wide_band():
-        raise NotImplementedError(_ROADMAP_WIDE)
+    """``dec``'s plan."""
     return _build_plan(dec)
 
 

@@ -3,7 +3,7 @@ ctypes: the byte-level serial work around the device batches
 (packet-header parsing and emission, segment blob layout, host
 unstuffing of the cleanup and refinement segments, and the encoder's
 byte stuffing of device-packed words), plus the scalar codeblock
-decoder that the kernels are held against.
+decoder and encoder that the kernels are held against.
 
 The source is a copy of the JAX package's ``ojtpu_native.cpp``.  The
 library is required: record-mode Tier-2 and the packers have no numpy
@@ -81,6 +81,10 @@ def _load():
         lib.decode_codeblock.argtypes = [
             ctypes.c_void_p] + [ctypes.c_int64] * 7 + \
             [ctypes.c_void_p] * 6
+        lib.encode_codeblock.restype = ctypes.c_int64
+        lib.encode_codeblock.argtypes = [
+            ctypes.c_void_p] + [ctypes.c_int64] * 5 + \
+            [ctypes.c_void_p] * 3 + [ctypes.c_void_p, ctypes.c_int64]
         _lib = lib
         return _lib
 
@@ -303,3 +307,41 @@ def decode_codeblock(coded_data, missing_msbs, num_passes, len1, len2,
     if missing_msbs < 30:
         return out.astype(np.uint32)
     return out
+
+
+_ENC_TABLES = None
+
+
+def _enc_tables():
+    global _ENC_TABLES
+    if _ENC_TABLES is None:
+        from ..coding.tables import get_tables
+        t = get_tables()
+        _ENC_TABLES = (
+            np.ascontiguousarray(t['enc_vlc0'], np.uint16),
+            np.ascontiguousarray(t['enc_vlc1'], np.uint16),
+            np.ascontiguousarray(t['enc_uvlc'], np.uint8))
+    return _ENC_TABLES
+
+
+def encode_codeblock(buf, missing_msbs, width, height, bits=32):
+    """C++ scalar HT cleanup-pass encode of one codeblock (``buf``: a
+    sign-magnitude [>= height, >= width] array, uint32 patterns, or
+    uint64 ones for the >30-bit-plane encoder64 regime at ``bits`` =
+    64); returns the cleanup segment bytes, or None when an internal
+    stream overflowed.  It is the independent per-block reference of the
+    encode kernel, never on the encode path."""
+    lib = _load()
+    vlc0, vlc1, uvlc = _enc_tables()
+    b = np.ascontiguousarray(buf[:height, :width], np.uint64)
+    # worst case: ~ (bits+2)-bit MagSgn words per sample + header streams
+    cap = int(width) * int(height) * (int(bits) // 8 + 3) + 8192
+    out = np.empty(cap, np.uint8)
+    n = int(lib.encode_codeblock(
+        b.ctypes.data, b.shape[1] if b.size else width,
+        int(missing_msbs), int(width), int(height), int(bits),
+        vlc0.ctypes.data, vlc1.ctypes.data, uvlc.ctypes.data,
+        out.ctypes.data, cap))
+    if n < 0:
+        return None
+    return bytes(out[:n])

@@ -21,8 +21,11 @@ plans its tiles and drops them with it, so host memory does not grow
 with the tile count (tiles of one geometry share a cached plan
 skeleton, gpu/pipeline.py::_plan_skeleton).  Decode runs K2 (raw readers, the
 default) or K1 (dense), and K4 on classes with refinement passes;
-encode runs K3.  Nothing falls back: what the fused runners cannot
-take raises, naming its ROADMAP.md item.
+encode runs K3 (its 64-bit instantiation on bands of more than 30 bit
+planes).  Nothing falls back: what the fused runners cannot take raises,
+naming its ROADMAP.md item, and where the JAX package's mosaics refuse a
+stream of more than 30 bit planes (decode, and the chunked encode), so
+do these, with its ValueError.
 """
 from __future__ import annotations
 
@@ -38,11 +41,17 @@ from ..core.message import warn as _wrn
 from ..gpu.encode_pipeline import (GpuEncoder, _empty_coded, _enc_runner,
                                    _narrow_dtype_for, _narrow_tile_plane,
                                    _tile_packets)
-from ..gpu.pipeline import (_ROADMAP_WIDE, GpuDecoder, _bucket,
-                            _build_plan, _burst_runner, _geometry_key,
-                            _merge_words, _pack, upload)
+from ..gpu.pipeline import (GpuDecoder, _bucket, _build_plan,
+                            _burst_runner, _geometry_key, _merge_words,
+                            _pack, upload)
 from ..utils import trace
 from .mesh import Mesh, make_mesh, pad_to_multiple, per_device
+
+# the JAX package's refusals (openjph_tpu/parallel/tiles.py:89-91, 335-338)
+_WIDE_DECODE = ('>30 bit-plane streams take the host path; mosaic sharding '
+                'unsupported')
+_WIDE_CHUNKED = ('stream not eligible for the fused encode path; chunked '
+                 'ingest needs it')
 
 def _frames(T: int, ndev: int) -> int:
     """Frames of a sub-batch of T tiles: a _bucket size at least the
@@ -60,8 +69,8 @@ class MosaicDecoder:
     sub-batches.  ``resilient``: broken codeblocks decode as zero blocks
     with warning 0x00080006, as in ``GpuDecoder``; strict mode raises
     ValueError.  ``raw`` picks the runner's input layout (K2, or K1 with
-    ``raw=False``).  Streams of more than 30 bit planes raise
-    NotImplementedError naming their ROADMAP.md item.
+    ``raw=False``).  Streams with a band of more than 30 bit planes
+    raise ValueError, as the JAX package's MosaicDecoder does.
 
     The decoder indexes the tile-parts and parses a tile's Tier-2 only
     while it plans the tile (``dec.tiles`` is lazy, codec._LazyTiles):
@@ -95,7 +104,7 @@ class MosaicDecoder:
             for ti in range(len(tiles)):
                 with tiles.held((ti,)):
                     if self.dec._wide_band(tiles[ti]):
-                        raise NotImplementedError(_ROADMAP_WIDE)
+                        raise ValueError(_WIDE_DECODE)
                     with trace.stage('decode.plan'):
                         plan = _build_plan(self.dec, (ti,))
                 gk = _geometry_key(plan.key)
@@ -208,9 +217,11 @@ class MosaicEncoder:
     the fused encode runner's frame axis (K3), split over the mesh's
     devices; byte stuffing, Tier-2 and assembly run on the host.  The
     output is byte-identical to ``encode_gpu``'s.  The keywords are
-    openjph_tpu.encode's.  Multi-pass encoding and bands of 31 or more
-    bit planes raise NotImplementedError naming their ROADMAP.md items
-    (12, 7c), and a K3 overflow RuntimeError, as ``encode_gpu`` does."""
+    openjph_tpu.encode's.  Bands of 31 or more bit planes go through
+    K3's 64-bit instantiation in ``encode``; ``encode_chunked`` refuses
+    them with the JAX package's ValueError.  Multi-pass encoding raises
+    NotImplementedError naming its ROADMAP.md item (12), and a K3
+    overflow RuntimeError, as ``encode_gpu`` does."""
 
     def __init__(self, mesh: Optional[Mesh] = None,
                  batch_tiles: int = 64, **enc_kwargs):
@@ -245,10 +256,12 @@ class MosaicEncoder:
                 np.asarray(tp).astype(_narrow_dtype_for(siz, c)))
                 for c, tp in enumerate(tps)]
 
-        return self._encode_common(shape, num_comps, read_tile, out=out)
+        return self._encode_common(shape, num_comps, read_tile, out=out,
+                                   chunked=True)
 
     @torch.inference_mode()
-    def _encode_common(self, shape, nc, read_tile, out=None):
+    def _encode_common(self, shape, nc, read_tile, out=None,
+                       chunked: bool = False):
         enc = build_encoder(shape, nc,
                             functools.partial(GpuEncoder,
                                               device=self.mesh.devices[0]),
@@ -262,6 +275,10 @@ class MosaicEncoder:
         by_key: Dict[tuple, dict] = {}
         for ti, tr in enumerate(trs):
             plan = enc._build_enc_plan(build_tile(enc.hdr, ti, tr))
+            if chunked and any(g.bits == 64 for g in plan.groups):
+                # the JAX package codes such a tile on its host, from the
+                # whole image, which chunked ingest does not have
+                raise ValueError(_WIDE_CHUNKED)
             cls = by_key.get(plan.key)
             if cls is None:
                 cls = by_key[plan.key] = {'plan': plan, 'tiles': []}

@@ -2,8 +2,9 @@
 the JAX package's (openjph_tpu.apps), on the CPU (``device='cpu'``): the
 same input files and flags give byte-identical .j2c files (the whole
 file: both write the same version COM marker) and byte-identical
-expanded files.  Without a card, and on streams the port does not code
-yet, the port's CLIs fail and write nothing: no host fallback."""
+expanded files.  Without a card the port's CLIs fail and write nothing:
+no host fallback.  Streams of more than 30 bit planes go through them as
+through the entry points."""
 import os
 import subprocess
 import sys
@@ -12,9 +13,11 @@ import numpy as np
 import pytest
 import torch
 
+from openjph_tpu import decode as jax_decode
 from openjph_tpu import encode as jax_encode
 from openjph_tpu.apps import compress as jax_compress
 from openjph_tpu.apps import expand as jax_expand
+from openjph_tpu_torch import decode, encode_gpu
 from openjph_tpu_torch.apps import compress, expand
 from openjph_tpu_torch.utils import imageio
 
@@ -152,24 +155,39 @@ def test_cli_without_a_card_fails_and_writes_nothing(tmp_path, rng,
     assert 'CUDA is not available' in capsys.readouterr().err
 
 
-def test_cli_refused_streams_are_reported_not_coded(tmp_path, rng, capsys):
-    """More than 30 bit planes (ROADMAP 7c): the port reports the
-    NotImplementedError and writes nothing; it never codes on the host."""
+def test_cli_refused_streams_are_reported_not_coded(tmp_path, rng):
+    """More than 30 bit planes (ROADMAP 7c), once refused, go through the
+    CLIs as through the entry points: a 29-bit raw file compresses to
+    the port's encode_gpu stream (the JAX package's from the first SOT),
+    and a 32-bit stream expands to the raw file of the port's decode
+    (the JAX package's decode), without a host fallback."""
+    img = rng.randint(0, 1 << 29, (16, 16)).astype(np.int32)
     src = str(tmp_path / 'in.raw')
-    imageio.write_raw(src, rng.randint(0, 1 << 29, (16, 16)), 29, False)
+    imageio.write_raw(src, img, 29, False)
     out = str(tmp_path / 'out.j2c')
     assert compress.main(['-i', src, '-o', out, '-dims', '{16,16}',
                           '-bit_depth', '29', '-reversible', 'true'],
-                         device='cpu') == 1
-    assert not os.path.exists(out)
+                         device='cpu') == 0
+    with open(out, 'rb') as f:
+        got = f.read()
+    assert got == encode_gpu(img, device='cpu', bit_depth=29,
+                             reversible=True)
+    ref = jax_encode(img, bit_depth=29, reversible=True)
+    assert got[got.index(b'\xff\x90'):] == ref[ref.index(b'\xff\x90'):]
     wide = str(tmp_path / 'wide.j2c')
+    img = rng.randint(0, 1 << 32, (16, 16), dtype=np.int64)
     with open(wide, 'wb') as f:
-        f.write(jax_encode(rng.randint(0, 1 << 31, (16, 16)).astype(
-            np.int64), bit_depth=32, reversible=True))
+        f.write(jax_encode(img, bit_depth=32, reversible=True))
     out = str(tmp_path / 'out.raw')
-    assert expand.main(['-i', wide, '-o', out], device='cpu') == 1
-    assert not os.path.exists(out)
-    assert capsys.readouterr().err.count('7c') == 2
+    assert expand.main(['-i', wide, '-o', out], device='cpu') == 0
+    planes = decode(open(wide, 'rb').read(), device='cpu')
+    assert planes[0].dtype == np.int64
+    assert np.array_equal(planes[0], jax_decode(open(wide, 'rb').read())[0])
+    ref = str(tmp_path / 'ref.raw')
+    imageio.write_raw(ref, planes[0], 32, False)
+    with open(out, 'rb') as a, open(ref, 'rb') as b:
+        assert a.read() == b.read()
+    assert np.array_equal(imageio.read_raw(out, 16, 16, 32, False), img)
 
 
 def test_importing_the_apps_and_utils_loads_no_jax():

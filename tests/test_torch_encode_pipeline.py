@@ -180,13 +180,17 @@ def test_dfs_encode_matches_jax_host_encoder():
 
 
 def test_configurations_outside_the_slice_raise():
+    """Multi-pass encoding (ROADMAP 12) still raises; 30-bit samples,
+    whose bands reach 31 bit planes (ROADMAP 7c), now encode as the JAX
+    package does."""
     img = _img(14, 40, 48)
     with pytest.raises(NotImplementedError,
                        match=r'ROADMAP\.md.*Multi-pass'):
         openjph_tpu_torch.encode_gpu(img, device='cpu', ht_passes=2)
-    with pytest.raises(NotImplementedError,
-                       match=r'31 or more bit planes.*ROADMAP\.md'):
-        openjph_tpu_torch.encode_gpu(img, device='cpu', bit_depth=30)
+    wide = np.random.RandomState(14).randint(0, 1 << 30, (40, 48))
+    got = openjph_tpu_torch.encode_gpu(wide, device='cpu', bit_depth=30)
+    ref = encode(wide, bit_depth=30)
+    assert got[got.index(b'\xff\x90'):] == ref[ref.index(b'\xff\x90'):]
 
 
 def test_cuda_is_the_default_and_never_falls_back():

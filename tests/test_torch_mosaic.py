@@ -24,6 +24,8 @@ import torch
 
 from openjph_tpu import encode
 from openjph_tpu.codec import Decoder, Encoder as JEncoder
+from openjph_tpu.parallel.tiles import MosaicDecoder as JaxMosaicDecoder
+from openjph_tpu.parallel.tiles import MosaicEncoder as JaxMosaicEncoder
 
 from openjph_tpu_torch import codec as tcodec
 from openjph_tpu_torch.core.message import OjphError
@@ -342,13 +344,34 @@ def test_mosaic_encoder_raises_instead_of_falling_back():
 
 
 def test_mosaic_decoder_refuses_wide_bands():
-    # 32-bit samples: bands of more than 30 bit planes (item 7c)
+    # 32-bit samples: bands of more than 30 bit planes, which the JAX
+    # MosaicDecoder refuses with this ValueError (parallel/tiles.py:89-91)
     img = np.random.RandomState(4).randint(0, 1 << 31, (32, 32),
                                            dtype=np.int64)
     s = encode([img], reversible=True, num_decomps=1, bit_depth=32,
                tile_size=(16, 16))
-    with pytest.raises(NotImplementedError, match='7c'):
+    with pytest.raises(ValueError, match='>30 bit-plane streams take the '
+                       'host path; mosaic sharding unsupported'):
+        JaxMosaicDecoder(s)
+    with pytest.raises(ValueError, match='>30 bit-plane streams take the '
+                       'host path; mosaic sharding unsupported'):
         MosaicDecoder(s, _mesh())
+
+
+def test_mosaic_chunked_encoder_refuses_wide_bands():
+    # the JAX encode_chunked has no whole image to code such a tile from
+    # on its host (parallel/tiles.py:335-338); MosaicEncoder.encode codes
+    # it (tests/test_torch_wide.py)
+    img = np.random.RandomState(5).randint(0, 1 << 31, (32, 32),
+                                           dtype=np.int64)
+    kw = dict(reversible=True, num_decomps=1, bit_depth=32,
+              tile_size=(16, 16))
+    msg = 'stream not eligible for the fused encode path; chunked ingest'
+    with pytest.raises(ValueError, match=msg):
+        JaxMosaicEncoder(**kw).encode_chunked(_tile_reader(img), (32, 32))
+    with pytest.raises(ValueError, match=msg):
+        MosaicEncoder(_mesh(), **kw).encode_chunked(_tile_reader(img),
+                                                    (32, 32))
 
 
 def test_entry_points_need_a_card_unless_told():

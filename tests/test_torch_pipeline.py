@@ -231,17 +231,19 @@ def test_resilient_decode_of_a_clean_stream_equals_strict():
 
 
 def test_streams_outside_the_slice_raise():
-    """Bands of 31 or more bit planes (tests/test_highbit.py's streams)
-    raise NotImplementedError naming their ROADMAP.md item, in both
-    modes."""
+    """Bands of 31 or more bit planes (tests/test_highbit.py's streams),
+    once outside the slice, decode in both modes to the JAX package's
+    host-decoder output, value and dtype (ROADMAP 7c)."""
     rng = np.random.RandomState(9)
-    wide = encode([rng.randint(0, 1 << 31, (32, 32)).astype(np.int64)],
-                  bit_depth=31, reversible=True, num_decomps=2)
+    img = rng.randint(0, 1 << 31, (32, 32)).astype(np.int64)
+    wide = encode([img], bit_depth=31, reversible=True, num_decomps=2)
+    ref = codec.decode(wide)
+    assert np.array_equal(ref[0], img)
     for resilient in (False, True):
-        with pytest.raises(NotImplementedError,
-                           match=r'more than 30 bit planes.*ROADMAP\.md'):
-            openjph_tpu_torch.GpuDecoder(wide, device='cpu',
-                                         resilient=resilient).decode()
+        got = openjph_tpu_torch.GpuDecoder(wide, device='cpu',
+                                           resilient=resilient).decode()
+        assert got[0].dtype == ref[0].dtype
+        assert np.array_equal(got[0], ref[0])
 
 
 def test_cpu_decode_launches_no_kernel():
