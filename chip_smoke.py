@@ -14,7 +14,18 @@ shapes, odd ones among them), also on lanes enough that a block's SigProp
 chains share one warp, split by its gates, the cleanup and
 refinement kernels together against the C++ scalar codeblock decoder,
 and both streams decoded end to end against the port's CPU decode (both
-runner modes, an 8-frame burst); codeblocks of more than 30 bit planes
+runner modes, an 8-frame burst); the multi-pass encode (the
+`multipass_encode` phase): the refinement-pass encoder against its plain
+version on every lane of the 3-pass frame, of an 8-frame burst of
+distinct frames and of seeded lanes of eight codeblock shapes, at 2 and
+3 passes, causal off and on, the cleanup encoder one plane coarser
+against its plain version and the C++ scalar encoder, the 3-pass frame,
+its causal 512x256 crop and the mixed-choice fixture encoded equal to
+their committed streams from the first SOT, the 3-pass mosaic fixture
+through MosaicEncoder, a burst through encode_gpu_batch and a 9/7 RGB
+3-pass frame against the CPU encode, each decoded back on the card, and
+the 3-pass encode timed in turns with the 1-pass one; codeblocks of more
+than 30 bit planes
 (the `wide` phase): the 64-bit instantiations of the three kernels
 against their plain versions on every lane of a 2048x1080 32-bit frame
 (the refinement kernel on a committed 3-pass 32-bit stream and on
@@ -175,6 +186,7 @@ def build_all():
     from openjph_tpu_torch.gpu import block_decode_cuda as K
     from openjph_tpu_torch.gpu import block_encode_cuda as E
     from openjph_tpu_torch.gpu import block_refine_cuda as R
+    from openjph_tpu_torch.gpu import block_refine_encode_cuda as R5
     errors = []
 
     def run(fn):
@@ -184,7 +196,7 @@ def build_all():
             errors.append(e)
 
     threads = [threading.Thread(target=run, args=(f,))
-               for f in (K.load, E.load, R.load, native.have_native,
+               for f in (K.load, E.load, R.load, R5.load, native.have_native,
                          lambda: phase_builds(0), lambda: phase_builds(1))]
     t0 = time.perf_counter()
     for t in threads:
@@ -757,17 +769,20 @@ def encode_frames(frames, dev, make=None):
     ev[3].record()
     torch.cuda.synchronize()
     t3 = time.perf_counter()
-    dense, metas, nzs = _fetch_outs(plan, cats, aux, F)
+    outs = _fetch_outs(plan, cats, aux, F)
     t4 = time.perf_counter()
     codeds = [_empty_coded(geom, 1) for _ in range(F)]
-    enc._stuff(plan, dense, metas, nzs, codeds)
+    enc._stuff(plan, *outs, codeds)
     t5 = time.perf_counter()
     streams = [enc.assemble([_tile_packets(enc, geom, c)]) for c in codeds]
     t6 = time.perf_counter()
+    # a multi-pass plan's Tier-1: K3, K5 and K3 again on its groups
+    tier1 = 'tier1_k3_k5_k3' if any(g.rcap for g in plan.groups) \
+        else 'tier1_k3'
     times = {'host_plan': (t1 - t0) * 1e3, 'narrow': (t2 - t1) * 1e3,
              'upload': ev[0].elapsed_time(ev[1]),
              'device_graph': ev[1].elapsed_time(ev[2]),
-             'tier1_k3': ev[2].elapsed_time(ev[3]),
+             tier1: ev[2].elapsed_time(ev[3]),
              'fetch_compact_d2h': (t4 - t3) * 1e3,
              'host_stuffing': (t5 - t4) * 1e3,
              't2_assemble': (t6 - t5) * 1e3, 'total': (t6 - t0) * 1e3}
@@ -1023,15 +1038,9 @@ def k4_vs_plain(data: bytes, dev, name: str, card_id: str, rows=None):
     in its kernels-line rows and requires the burst-sized launches to
     share warps between chains."""
     import numpy as np
-    from openjph_tpu_torch import native
     from openjph_tpu_torch.gpu import block_refine_cuda as R
     plan, modes = k4_groups(data, dev)
     buf = np.frombuffer(data, np.uint8)
-    starts = {}
-    s0 = 0
-    for g in plan.groups:
-        starts[g.gid] = s0
-        s0 += g.n_pad
     for kname, kern, ref, raw in k4_modes():
         groups = modes[raw]
         if not groups:
@@ -1052,22 +1061,7 @@ def k4_vs_plain(data: bytes, dev, name: str, card_id: str, rows=None):
             raise AssertionError(f'{kname}: no burst-sized launch of {name} '
                                  f'shared a warp between chains: {packed}')
         # the cleanup and refinement kernels against the scalar decoder
-        live = 0
-        for (g, _, _), got in zip(groups, outs):
-            got = got.cpu().numpy().view(np.uint32)
-            for i in range(len(g.members)):
-                pos, lcup, _, p, qhl, npass, l2, h, cs = \
-                    (int(x[starts[g.gid] + i]) for x in plan.lanes)
-                if pos < 0:
-                    continue
-                want = native.decode_codeblock(
-                    buf[pos:pos + lcup + l2], 30 - p, npass, lcup, l2, g.w,
-                    h, bool(cs))
-                if not np.array_equal(got[i, :h], want):
-                    raise AssertionError(f'{kname}: lane {i} of group '
-                                         f'{g.w}x{g.h} differs from the '
-                                         f'scalar decoder')
-                live += 1
+        live = scalar_lanes(plan, groups, outs, buf, kname)
         fields = {}
         if rows is not None:
             ms = k4_ms(kern, groups)
@@ -2179,12 +2173,12 @@ def cleanup_blocks(dev):
     return out
 
 
-def mosaic_phase(dev, kernels, K, E, R, card_id):
+def mosaic_phase(dev, kernels, K, E, R, R5, card_id):
     """The committed mosaic fixtures through MosaicDecoder (K2, and K1 in
     the dense runner mode; K4 on the 3-pass one) against their sources,
     the CPU decode and the JAX package's fused 9/7 decode, re-encoded
-    through MosaicEncoder (K3) byte-equal to the JAX package's streams;
-    the 3-pass re-encode refused; decode_blocks_sharded (K1) on the 64x64
+    through MosaicEncoder (K3, and K5 on the 3-pass one) byte-equal to
+    the JAX package's streams; decode_blocks_sharded (K1) on the 64x64
     blocks of a 256x256 stream against the C++ scalar decoder.
     Counted."""
     import numpy as np
@@ -2209,6 +2203,7 @@ def mosaic_phase(dev, kernels, K, E, R, card_id):
     K.reset_launches()
     E.reset_launches()
     R.reset_launches()
+    R5.reset_launches()
     for name in MOSAIC_FIXTURES:
         planes, kw = sources[name]
         for raw in (True, False):
@@ -2237,13 +2232,6 @@ def mosaic_phase(dev, kernels, K, E, R, card_id):
                  refine=any(c['top'].has_refine for c in md.classes),
                  **held)
         me = MosaicEncoder(mesh, **kw)
-        if kw.get('ht_passes', 1) > 1:
-            try:
-                me.encode(planes)
-            except NotImplementedError as e:
-                emit('mosaic_encode', stream=name, refused=str(e))
-                continue
-            raise AssertionError('MosaicEncoder took a multi-pass encode')
         if me.encode(planes) != streams[name]:
             raise AssertionError(f'{name}: MosaicEncoder differs from the '
                                  f'JAX package\'s stream')
@@ -2265,7 +2253,7 @@ def mosaic_phase(dev, kernels, K, E, R, card_id):
     emit('decode_blocks_sharded', blocks=len(blocks), mesh=mesh.size,
          equal_to_scalar_decoder=True)
     torch.cuda.synchronize()
-    launches = launch_counts(K, R, E)
+    launches = launch_counts(K, R, E, R5)
     for k, v in launches.items():
         if v == 0:
             raise AssertionError(f'{k} was not launched in the mosaic phase')
@@ -3137,6 +3125,436 @@ def wide_phase(gray, gray_ref, dev, kernels, K, E, R, card_id):
          card=card_id)
 
 
+# ---------------------------------------------------------------------------
+# multi-pass encode (ROADMAP 12): K3 and the refinement-pass encoder K5
+# ---------------------------------------------------------------------------
+
+# the 3-pass fixture's keywords (testdata/README.md), and the causal
+# fixture's on the frame's top-left 512x256
+P3_KW = dict(reversible=True, num_decomps=5, ht_passes=3)
+P2C_KW = dict(reversible=True, num_decomps=5, ht_passes=2, vert_causal=True)
+# integer operations per codeblock sample of the refinement-pass encoder,
+# counted off ht_refine_encode.cu: ~12 for phase A (a load, three tests
+# and shifts, ORs), ~3 for its shuffles and stores (per column), ~6 for
+# MagRef (a column's nibbles, pext, the scan and two atomics over four
+# samples), ~5 for SigProp (a group's ~50-op context over 16 samples, ~10
+# a candidate, ~6 a sign) and ~2 for stuffing (~12 a byte of 7-8 bits)
+REFINE_ENC_OPS_PER_SAMPLE = 28
+
+
+def k5_groups(frames, dev, passes=None, causal=None, **kwargs):
+    """(plan, [(group label, encode_refine's arguments)]) of the lane
+    groups with multi-pass lanes of one runner call on ``frames`` (each a
+    list of planes), as the runner builds them; ``passes`` / ``causal``
+    override the plan's on those lanes."""
+    import numpy as np
+    import torch
+    from openjph_tpu_torch.gpu.encode_pipeline import (_make_enc_runner,
+                                                       _narrow_tile_plane)
+    nc = len(frames[0])
+    enc, geom = encoder(frames[0][0].shape, nc, dev, **kwargs)
+    plan = enc._build_enc_plan(geom)
+    runner = _make_enc_runner(plan, len(frames), dev)
+    tpl = [torch.from_numpy(np.stack([
+        _narrow_tile_plane(enc.siz, geom, c, f[c]) for f in frames])).to(dev)
+        for c in range(nc)]
+    out = []
+    for g, (buf, _), ref in zip(plan.groups, runner.graph(*tpl),
+                                runner.lane_refine):
+        if ref is None:
+            continue
+        pm, h_lim, npasses = ref
+        if passes is not None:
+            npasses = torch.where(npasses > 0, passes, 0).to(torch.int32)
+        out.append((f'{g.w}x{g.h}', (buf, pm, h_lim, npasses,
+                                     plan.causal if causal is None
+                                     else causal, g.w, g.h, g.rcap)))
+    return plan, out
+
+
+def hold_k5(groups, label: str):
+    """K5 against its plain version on every lane of ``groups``: the
+    segments' words, both byte counts and the overflow flags.  Returns
+    (plain ms, kernel outputs per group)."""
+    import torch
+    from openjph_tpu_torch.gpu import block_refine_encode as plain
+    from openjph_tpu_torch.gpu import block_refine_encode_cuda as R5
+    plain_ms = 0.0
+    outs = []
+    for gname, a in groups:
+        got = R5.encode_refine(*a)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = plain.encode_refine_core(*a)
+        torch.cuda.synchronize()
+        plain_ms += (time.perf_counter() - t0) * 1e3
+        for x, y, what in zip(got, want, ('segments', 'byte counts',
+                                          'overflow flags')):
+            if not torch.equal(x, y):
+                bad = int((x != y).reshape(x.shape[0], -1).any(1).sum())
+                raise AssertionError(f'ht_refine_encode: {what} of {bad} '
+                                     f'lanes differ from the plain version '
+                                     f'in group {gname} ({label})')
+        if bool(got[2].any()):
+            raise AssertionError(f'ht_refine_encode: a lane of group '
+                                 f'{gname} overflowed ({label})')
+        outs.append(got)
+    return plain_ms, outs
+
+
+def k5_bound(groups, outs):
+    """(bytes, operations) K5 needs on ``groups``: every lane reads its
+    pass count and writes its byte counts and flag; a lane of 2 or 3
+    passes also reads its p, its height and its rows below that height
+    once, and writes its segment's bytes."""
+    import torch
+    nbytes = ops = 0
+    for (_, a), (_, lens, _) in zip(groups, outs):
+        h_lim, npasses, w = a[2], a[3], a[5]
+        on = npasses >= 2
+        samples = int(torch.where(on, h_lim, 0).sum()) * w
+        nbytes += npasses.numel() * 13 + int(on.sum()) * 8 + samples * 4 \
+            + int(torch.where(on, lens.sum(1), 0).sum())
+        ops += samples * REFINE_ENC_OPS_PER_SAMPLE
+    return nbytes, ops
+
+
+def k5_lanes(rng, w: int, h: int, lanes: int):
+    """Seeded lanes of w x h in a [lanes, hp, wp] batch for K5, each with
+    its own p (2 to 30): noise of every plane count, blocks whose last
+    plane is all ones around sparse significant samples (runs of ones:
+    0xFF bytes in SigProp, 0x7F in MagRef) and sparse blocks."""
+    import numpy as np
+    hp, wp = (h + 1) // 2 * 2, (w + 3) // 4 * 4
+    buf = np.zeros((lanes, hp, wp), np.uint32)
+    ps = rng.randint(2, 31, lanes)
+    for i, p in enumerate(ps):
+        lsb = 1 << (int(p) - 1)  # the magnitude's last plane, p - 1
+        if i % 3 == 0:
+            mag = rng.randint(0, 1 << min(32 - int(p), 16), (h, w)) \
+                .astype(np.uint64) * lsb
+            mag[rng.rand(h, w) < rng.rand()] = 0
+        elif i % 3 == 1:
+            mag = np.full((h, w), lsb, np.uint64)
+            mag[rng.rand(h, w) < 0.05] |= 2 * lsb
+        else:
+            mag = ((rng.rand(h, w) < 0.3) * 3 * lsb).astype(np.uint64)
+        neg = rng.rand(h, w) < (0.95 if i % 3 == 1 else 0.5)
+        buf[i, :h, :w] = (np.minimum(mag, (1 << 31) - 1)
+                          | (neg & (mag != 0)).astype(np.uint64) << 31)
+    return buf, ps.astype(np.int32)
+
+
+def k5_synthetic(dev, card_id: str, lanes: int = 192, seed: int = 13):
+    """K5 against its plain version on seeded lanes of eight codeblock
+    shapes, odd ones among them: each lane with its own p, passes (0 to
+    3) and height (half of them below the group's), causal off and
+    on."""
+    import numpy as np
+    import torch
+    from openjph_tpu_torch.gpu import block_refine_encode as plain
+    rng = np.random.RandomState(seed)
+    res = {}
+    for w, h in ((64, 64), (128, 32), (32, 128), (1024, 4), (4, 1024),
+                 (13, 7), (64, 1), (1, 1)):
+        buf, ps = k5_lanes(rng, w, h, lanes)
+        hp = buf.shape[1]
+        h_lim = np.where(rng.rand(lanes) < 0.5, h,
+                         rng.randint(1, h + 1, lanes)).astype(np.int32)
+        npasses = rng.choice([0, 1, 2, 3, 3, 2], lanes).astype(np.int32)
+        cap = plain.cap_words(w, hp)
+        t = [torch.from_numpy(x).to(dev)
+             for x in (buf.view(np.int32), ps, h_lim, npasses)]
+        for causal in (False, True):
+            _, outs = hold_k5([(f'{w}x{h}', (*t, causal, w, hp, cap))],
+                              f'synthetic, causal={causal}')
+            lens = outs[0][1]
+            res[f'{w}x{h}'] = [int(lens[:, 0].max()), int(lens[:, 1].max()),
+                               int((lens.sum(1) == 0).sum())]
+    emit('k5_synthetic', lanes_per_shape=lanes, bit_exact=True,
+         causal=[False, True],
+         max_spp_bytes_max_mrp_bytes_empty_lanes=res, card=card_id)
+
+
+def k5_vs_plain(frames, name: str, dev, card_id: str, row: bool = False):
+    """K5 against its plain version on every lane of a runner call on
+    ``frames`` (the 3-pass fixture's keywords) at 2 and 3 passes, causal
+    off and on; with ``row``, its time on the frames' lanes as coded and
+    its kernels-line row."""
+    from openjph_tpu_torch.gpu import block_refine_encode_cuda as R5
+    checked = []
+    for passes in (3, 2):
+        for causal in (False, True):
+            plan, groups = k5_groups(frames, dev, passes=passes,
+                                     causal=causal, **P3_KW)
+            plain_ms, outs = hold_k5(groups, f'{name}, {passes} passes, '
+                                             f'causal={causal}')
+            if passes == 3 and not causal:
+                coded = (groups, plain_ms, outs)
+            checked.append([passes, causal,
+                            sum(int(o[1].sum()) for o in outs)])
+    groups, plain_ms, outs = coded
+    lanes = sum(a[0].shape[0] for _, a in groups)
+    fields = {}
+    if row:
+        ms = sum(cuda_ms(lambda: R5.encode_refine(*a), 20) for _, a in groups)
+        nbytes, ops = k5_bound(groups, outs)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / FP32_OPS_PER_S * 1e3
+        fields = dict(kernel_ms=ms, bytes_moved=nbytes,
+                      bound_ms=max(bytes_ms, ops_ms),
+                      codeblocks_per_block=R5.PER_BLOCK)
+    emit('k5_vs_plain', frame=name, frames=len(frames), lanes=lanes,
+         groups=[gname for gname, _ in groups], bit_exact=True,
+         passes_causal_segment_bytes=checked, plain_ms=plain_ms,
+         card=card_id, **fields)
+    if not row:
+        return None
+    return {
+        'name': 'ht_refine_encode', 'route': 'cuda',
+        'source': 'openjph_tpu_torch/gpu/csrc/ht_refine_encode.cu',
+        # no TPU kernel is behind it: the JAX package's host coder
+        'replaces': 'openjph_tpu/coding/encoder.py:460',
+        'launches': 0, 'max_abs_err': 0, 'ms': fields['kernel_ms'],
+        'plain_ms': plain_ms, 'bound_ms': fields['bound_ms'],
+        'bound_by': 'bytes' if bytes_ms >= ops_ms else 'operations',
+        'library_ms': None, 'bit_exact': True,
+    }
+
+
+def k3_multipass_vs_scalar(gray_ref, dev, card_id: str):
+    """The cleanup encoder's first launches at p = 32 - kmax (the kept
+    multi-pass lanes' cleanup), and at 31 - kmax, against its plain
+    version and, stuffed, against the C++ scalar encoder at kmax - 2 and
+    kmax - 1 missing MSBs, on every lane of the 3-pass frame; the chosen
+    segments as the fused path fills them."""
+    import numpy as np
+    import torch
+    from openjph_tpu_torch import native
+    from openjph_tpu_torch.gpu import block_encode as plain
+    from openjph_tpu_torch.gpu import block_encode_cuda as E
+    from openjph_tpu_torch.gpu.encode_pipeline import (_empty_coded,
+                                                       _fetch_outs)
+    plan, runner, batches = enc_batches([gray_ref], dev, **P3_KW)
+    enc, geom = encoder(gray_ref.shape, 1, dev, **P3_KW)
+    k3_ms = {'p_32_minus_kmax': 0.0, 'p_31_minus_kmax': 0.0}
+    for g, (buf, _), p, qhl, ref in zip(plan.groups, batches, runner.lane_p,
+                                        runner.lane_qhl, runner.lane_refine):
+        if ref is None:
+            raise AssertionError(f'group {g.w}x{g.h} of the 3-pass frame '
+                                 f'has no multi-pass lane')
+        for key, lane_p in (('p_32_minus_kmax', ref[0]),
+                            ('p_31_minus_kmax', p)):
+            args = (buf, lane_p, g.w, g.h, g.caps, qhl)
+            got, want = E.encode_cleanup(*args), \
+                plain.encode_cleanup_core(*args)
+            if not all(torch.equal(x, y) for x, y in zip(got, want)):
+                raise AssertionError(f'ht_cleanup_encode at {key} differs '
+                                     f'from the plain version in group '
+                                     f'{g.w}x{g.h}')
+            k3_ms[key] += cuda_ms(lambda: E.encode_cleanup(*args), 20)
+    coded = _empty_coded(geom, 1)
+    enc._stuff(plan, *_fetch_outs(plan, *runner.tier1(batches), 1), [coded])
+    kinds = {}
+    for g, (buf, nz) in zip(plan.groups, batches):
+        host = buf.cpu().numpy().view(np.uint32)
+        for lane, (bid, bi, h_t) in enumerate(g.lanes):
+            (c, r, b, kmax, _, _, _, _) = plan.bands[bid]
+            cb = coded[c][r][b][bi]
+            if not bool(nz[0, lane]):
+                continue
+            kinds[cb.num_passes] = kinds.get(cb.num_passes, 0) + 1
+            want = native.encode_codeblock(host[lane], cb.missing_msbs, g.w,
+                                           h_t)
+            if cb.missing_msbs != kmax - (2 if cb.num_passes > 1 else 1) \
+                    or cb.data[:cb.pass_length[0]] != want:
+                raise AssertionError(f'lane {lane} of group {g.w}x{g.h}: '
+                                     f'the cleanup segment differs from the '
+                                     f'scalar encoder\'s')
+    emit('k3_multipass_vs_scalar', frame='gray_2048x1080', bit_exact=True,
+         coded_lanes_by_passes=kinds, kernel_ms=k3_ms, card=card_id)
+
+
+def scalar_lanes(plan, groups, outs, buf, kname: str) -> int:
+    """The cleanup and refinement kernels' output ``outs`` on every live
+    lane of a frame's ``groups`` (k4_groups) against the C++ scalar
+    codeblock decoder; returns the lanes held."""
+    import numpy as np
+    from openjph_tpu_torch import native
+    starts = {}
+    s0 = 0
+    for g in plan.groups:
+        starts[g.gid] = s0
+        s0 += g.n_pad
+    live = 0
+    for (g, _, _), got in zip(groups, outs):
+        got = got.cpu().numpy().view(np.uint32)
+        for i in range(len(g.members)):
+            pos, lcup, _, p, qhl, npass, l2, h, cs = \
+                (int(x[starts[g.gid] + i]) for x in plan.lanes)
+            if pos < 0:
+                continue
+            want = native.decode_codeblock(
+                buf[pos:pos + lcup + l2], 30 - p, npass, lcup, l2, g.w,
+                h, bool(cs))
+            if not np.array_equal(got[i, :h], want):
+                raise AssertionError(f'{kname}: lane {i} of group '
+                                     f'{g.w}x{g.h} differs from the '
+                                     f'scalar decoder')
+            live += 1
+    return live
+
+
+def hold_vs_scalar_decoder(data: bytes, dev, name: str) -> int:
+    """The cleanup and refinement kernels (both reader modes) on every
+    live lane of a multi-pass stream against the C++ scalar codeblock
+    decoder; returns the lanes held."""
+    import numpy as np
+    plan, modes = k4_groups(data, dev)
+    buf = np.frombuffer(data, np.uint8)
+    live = 0
+    for kname, kern, _, raw in k4_modes():
+        outs = [kern(d.clone(), *a) for _, d, a in modes[raw]]
+        live = scalar_lanes(plan, modes[raw], outs, buf, kname)
+    if not live:
+        raise AssertionError(f'{name} has no live multi-pass lane')
+    return live
+
+
+def multipass_encode_phase(gray_ref, gray3_ref, rgb_planes, dev, kernels, K,
+                           E, R, R5, card_id):
+    """Multi-pass encode (ROADMAP 12) on the card: K5 held bit-exact
+    against its plain version on the 3-pass frame's lanes, an 8-frame
+    burst's and seeded synthetic lanes, at 2 and 3 passes, causal off and
+    on; K3's launches at p = 32 - kmax against its plain version and the
+    scalar encoder; then, counted, the 3-pass frame equal to
+    gray_2048x1080_rev_p3.j2c and the causal crop to
+    gray_512x256_rev_p2_causal.j2c from the first SOT, the mixed-choice
+    fixture, the 3-pass mosaic fixture through MosaicEncoder, an 8-frame
+    burst through encode_gpu_batch equal to the per-frame encodes, and a
+    256x256 RGB 9/7 3-pass frame equal to the CPU encode; each stream
+    decoded on the card (K2 and K1, then K4) against the CPU decode, the
+    3-pass frame's lanes against the scalar decoder; then the 3-pass
+    encode timed in turns with the 1-pass one.  The counted launches are
+    added to ``kernels``."""
+    import numpy as np
+    from openjph_tpu_torch import encode_gpu_batch
+    from openjph_tpu_torch.gpu.encode_pipeline import encode_gpu
+    from openjph_tpu_torch.gpu.pipeline import decode_gpu
+    from openjph_tpu_torch.parallel import MosaicEncoder, make_mesh
+    from openjph_tpu_torch.parallel._testing import (
+        MIXED_PASSES, MIXED_PASSES_KWARGS, mixed_passes_source,
+        mosaic_fixture_sources)
+    t_phase = time.perf_counter()
+    frames = [[f] for f in video_frames(gray_ref)[:BURST]]
+    # K5 and K3 held, not counted
+    kernels['ht_refine_encode'] = k5_vs_plain(frames[:1], 'gray_2048x1080',
+                                              dev, card_id, row=True)
+    k5_vs_plain(frames, 'gray_2048x1080_rolled_burst', dev, card_id)
+    k5_synthetic(dev, card_id)
+    k3_multipass_vs_scalar(gray_ref, dev, card_id)
+    # references, not counted: the fixtures and the CPU encode of the RGB
+    # crop
+    gray3 = open(GRAY3, 'rb').read()
+    causal2 = open(CAUSAL2, 'rb').read()
+    mixed = open(os.path.join(TESTDATA, MIXED_PASSES + '.j2c'), 'rb').read()
+    p3_name = 'mosaic_gray_128x128_rev_p3_t64'
+    mosaic_planes, mosaic_kw = mosaic_fixture_sources()[p3_name]
+    mosaic_p3 = open(os.path.join(TESTDATA, p3_name + '.j2c'), 'rb').read()
+    rgb = [np.ascontiguousarray(p[:256, :256]) for p in rgb_planes]
+    rgb_kw = dict(reversible=False, num_decomps=5, ht_passes=3)
+    t0 = time.perf_counter()
+    rgb_cpu = encode_gpu(rgb, device='cpu', **rgb_kw)
+    rgb_cpu_s = time.perf_counter() - t0
+    K.reset_launches()
+    E.reset_launches()
+    R.reset_launches()
+    R5.reset_launches()
+    streams = {}
+    streams['gray_2048x1080_rev_p3'] = encode_gpu(gray_ref, device=dev,
+                                                  **P3_KW)
+    streams['gray_512x256_rev_p2_causal'] = encode_gpu(
+        np.ascontiguousarray(gray_ref[:256, :512]), device=dev, **P2C_KW)
+    streams[MIXED_PASSES] = encode_gpu(mixed_passes_source(), device=dev,
+                                       **MIXED_PASSES_KWARGS)
+    for name, want in (('gray_2048x1080_rev_p3', gray3),
+                       ('gray_512x256_rev_p2_causal', causal2),
+                       (MIXED_PASSES, mixed)):
+        if from_sot(streams[name]) != from_sot(want):
+            raise AssertionError(f'the {name} encode differs from its '
+                                 f'fixture from the first SOT on')
+    streams[p3_name] = MosaicEncoder(make_mesh(), **mosaic_kw).encode(
+        mosaic_planes)
+    if streams[p3_name] != mosaic_p3:
+        raise AssertionError(f'{p3_name}: MosaicEncoder differs from the '
+                             f'JAX package\'s stream')
+    burst = encode_gpu_batch([f[0] for f in frames], device=dev, **P3_KW)
+    singles = [encode_gpu(f[0], device=dev, **P3_KW) for f in frames]
+    if burst != singles or from_sot(burst[0]) != from_sot(gray3):
+        raise AssertionError('a 3-pass burst stream differs from the '
+                             'per-frame encode')
+    streams['rgb_256x256_97_ict_p3'] = encode_gpu(rgb, device=dev, **rgb_kw)
+    if streams['rgb_256x256_97_ict_p3'] != rgb_cpu:
+        raise AssertionError('the RGB 9/7 3-pass encode differs from the '
+                             'CPU encode')
+    # decoded back on the card, both runner modes
+    held = {}
+    for name, s in streams.items():
+        want = gray3_ref if name == 'gray_2048x1080_rev_p3' \
+            else decode_gpu(s, device='cpu', raw=False)
+        for raw in (True, False):
+            got = decode_gpu(s, device=dev, raw=raw)
+            if len(got) != len(want) or not all(
+                    np.array_equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f'{name} does not decode on the card '
+                                     f'to its CPU decode (raw={raw})')
+        held[name] = len(s)
+    launches = launch_counts(E, R5, K, R)
+    for k in ('ht_cleanup_encode', 'ht_refine_encode',
+              'ht_cleanup_decode_raw', 'ht_cleanup_decode_dense',
+              'ht_refine_decode_raw', 'ht_refine_decode_dense'):
+        if launches[k] == 0:
+            raise AssertionError(f'{k} was not launched on the multi-pass '
+                                 f'encode path')
+    for k, v in launches.items():
+        kernels[k]['launches'] += v
+    live = hold_vs_scalar_decoder(streams['gray_2048x1080_rev_p3'], dev,
+                                  'gray_2048x1080_rev_p3')
+    emit('e2e_multipass_encode', streams_bytes=held,
+         equal_to_fixtures_from_sot=['gray_2048x1080_rev_p3',
+                                     'gray_512x256_rev_p2_causal',
+                                     MIXED_PASSES],
+         mosaic_equal_to_jax_stream=True, burst_equal_to_single=True,
+         rgb_97_equal_to_cpu=True, rgb_cpu_reference_s=rgb_cpu_s,
+         decodes_to_cpu_decode=True, scalar_decoder_equal_lanes=live)
+    emit('multipass_encode_path_launches', **launches)
+
+    # 3-pass encode stage times in turns with the 1-pass one, one frame and
+    # a burst (median of the runs), then encode_gpu_batch of 8 distinct
+    # frames
+    mp = gray_ref.size / 1e6
+    make = {1: dfs_free,
+            3: lambda shape, d: encoder(shape, 1, d, **P3_KW)}
+    for passes in (1, 3, 3, 1):
+        for n in (1, BURST):
+            med, p75 = timed(lambda: encode_frames([gray_ref] * n, dev,
+                                                   make=make[passes]), 40)
+            emit('multipass_encode_timing', passes=passes, frames=n, runs=40,
+                 median_ms=med, total_p75_ms=p75,
+                 mp_per_s=n * mp / (med['total'] / 1e3), card=card_id)
+    walls = {1: [], 3: []}
+    for passes in (1, 3, 3, 1):
+        kw = P3_KW if passes == 3 else dict(reversible=True)
+        walls[passes].append(host_ms(lambda: encode_gpu_batch(
+            [f[0] for f in frames], device=dev, **kw), 10))
+    emit('multipass_encode_batch_timing', frames=BURST, runs=10,
+         turns='1, 3, 3, 1 passes', median_wall_ms=walls,
+         mp_per_s={k: BURST * mp / (statistics.mean(v) / 1e3)
+                   for k, v in walls.items()}, card=card_id)
+    emit('multipass_encode_phase_s', seconds=time.perf_counter() - t_phase,
+         card=card_id)
+
+
 def main() -> int:
     import argparse
     import numpy as np
@@ -3163,6 +3581,7 @@ def main() -> int:
     from openjph_tpu_torch.gpu import block_decode_cuda as K
     from openjph_tpu_torch.gpu import block_encode_cuda as E
     from openjph_tpu_torch.gpu import block_refine_cuda as R
+    from openjph_tpu_torch.gpu import block_refine_encode_cuda as R5
     from openjph_tpu_torch.gpu.encode_pipeline import encode_gpu
     from openjph_tpu_torch.gpu.pipeline import decode_gpu
 
@@ -3381,6 +3800,11 @@ def main() -> int:
              total_p75_ms=p75, mp_per_s=n * mp / (med['total'] / 1e3),
              card=card_id)
 
+    # 9a. multi-pass encode (ROADMAP 12): K5 and K3 held, the multi-pass
+    # encode paths counted, then timed in turns with the 1-pass encode
+    multipass_encode_phase(gray_ref, refs['gray_2048x1080_rev_p3'],
+                           rgb_planes, dev, kernels, K, E, R, R5, card_id)
+
     # 9b. codeblocks of more than 30 bit planes: the 64-bit kernels held,
     # the wide paths counted, then timed in turns with the 8-bit frame
     wide_phase(gray, gray_ref, dev, kernels, K, E, R, card_id)
@@ -3429,7 +3853,7 @@ def main() -> int:
     # 14. mosaics and scale-out, each counted: the fixtures through the
     # mosaic coders and decode_blocks_sharded; BASELINE config 5 at 8K and
     # 32K; the sharded DWT and the frame fan-out in two processes
-    mosaic_phase(dev, kernels, K, E, R, card_id)
+    mosaic_phase(dev, kernels, K, E, R, R5, card_id)
     mosaic_scale_phase(dev, kernels, K, E, R, card_id,
                        with_100k=opts.mosaic_100k)
     t0 = time.perf_counter()

@@ -166,8 +166,7 @@ def main(argv=None, device='cuda') -> int:
             f.write(stream)
         print(f'Elapsed time = {time.time() - t0:f}')
         return 0
-    # RuntimeError: no card (and NotImplementedError, a subclass: a
-    # stream the port does not encode yet)
+    # RuntimeError: no card, or an encoder's overflow
     except (ArgError, ValueError, OSError, RuntimeError) as e:
         print(f'ojph-gpu-compress: {e}', file=sys.stderr)
         return 1

@@ -1,6 +1,7 @@
 """Fused frame encode on one GPU: sample conversion -> colour transform
--> forward DWT pyramid -> quantization -> the HT cleanup encoder (the
-CUDA kernel), with byte stuffing and Tier-2 packetization on the host.
+-> forward DWT pyramid -> quantization -> the HT cleanup encoder (K3)
+and, for multi-pass codeblocks, the refinement-pass encoder (K5), with
+byte stuffing and Tier-2 packetization on the host.
 
 Mirror image of the decode plan (pipeline.py) and a port of the JAX
 package's tpu/encode_pipeline.py: band planes are carved into
@@ -14,6 +15,18 @@ device, the host copies it once and the native stuffer
 (ojph_block_encoder.cpp:273-533; the OpenJPH encoder emits only the
 cleanup pass).  A burst of same-geometry frames is batched along the
 lanes: frame f of group g occupies lanes [f*n_pad, (f+1)*n_pad).
+
+Multi-pass (``ht_passes`` 2 or 3, ROADMAP 12) codes each eligible
+codeblock as the JAX package's scalar Encoder does (codec.py:826-857):
+a band that is not wide and has kmax >= 2 is multi-pass; its non-zero
+codeblocks get a cleanup segment one plane coarser (missing_msbs = kmax
+- 2, K3 at p = 32 - kmax) and a SigProp [+ MagRef] segment coding the
+last plane (K5), kept only where that segment holds 1 to 2,046 bytes;
+any other is coded cleanup-only at kmax - 1 (K3 again, at p = 31 -
+kmax).  A group with multi-pass lanes runs K3, K5 and K3 on the same
+batch; the choice per lane is made on the host from the one aux fetch,
+and the compaction gathers the kept lanes' cleanup words of the first
+K3 run and K5's bytes, the others' words of the second run.
 
 A reversible band of kmax >= 31 (ROADMAP 7c) is coded as the JAX
 package's scalar Encoder codes it (codec.py:742-857): samples of more
@@ -44,12 +57,15 @@ from . import block_encode_cuda
 from . import color as clr
 from . import dwt
 from .block_encode_cuda import encode_cleanup
+from .block_refine_encode import cap_words
+from .block_refine_encode_cuda import encode_refine
 from .pipeline import _Cache, _res_band_list, _wide, resolve_device
 from .quant import tx_to_cb
 from .staging import Stager
 
-_ROADMAP_MULTIPASS = ('multi-pass (SigProp/MagRef) encoding is not ported '
-                      'yet: ROADMAP.md Queue A, "Multi-pass encode"')
+# the reference's limit on a refinement segment (ojph_precinct.cpp:
+# 496-514): a multi-pass codeblock keeps its passes only below it
+_MAX_SEG2 = 2047
 
 
 def _ebucket(n: int) -> int:
@@ -90,6 +106,11 @@ class _EncGroup:
     caps: tuple = (0, 0, 0)                      # dense word caps
     # 64: a wide band's group (uint64 samples, p = 63 - kmax)
     bits: int = 32
+    # multi-pass: per lane whether its band is coded in several passes
+    # (K3's first run then takes p + 1 = 32 - kmax there); rcap: K5's
+    # words a lane (0: no multi-pass lane in the group)
+    multi: list = field(default_factory=list)
+    rcap: int = 0
 
 
 @dataclass
@@ -102,6 +123,10 @@ class _EncPlan:
     # a res spec is (band ids, h_even, v_even, DFS level type)
     comps: List[tuple]
     mct: bool
+    # multi-pass: the passes of an eligible codeblock, the stripe-causal
+    # mode
+    passes: int = 1
+    causal: bool = False
 
 
 class _EncRunner:
@@ -110,28 +135,39 @@ class _EncRunner:
     w] tensor of the narrow upload dtype and returns per lane group its
     sample batch (int32 [nframes*n_pad, hp, wp], int64 for a wide band's
     group) and zero-block flags;
-    ``tier1(batches)`` runs the HT cleanup encoder per group and returns
-    (cats, aux): the per-group word rows [nframes*n_pad, wm+wv+ws] and
-    one int32 buffer of every group's bit counts, then its non-zero
-    flags [nframes, lanes], then its overflow flags.  Calling the
-    runner does both."""
+    ``tier1(batches)`` runs the HT cleanup encoder per group (K3; on a
+    group with multi-pass lanes K3, K5 and K3 again) and returns (cats,
+    aux): per group its word rows [nframes*n_pad, wm+wv+ws] (a
+    multi-pass group's: the first K3 run's, the second's and K5's
+    [nframes*n_pad, rcap]), and one int32 buffer of, per group, its bit
+    counts (a multi-pass group's: both runs' and K5's byte counts), then
+    every group's non-zero flags [nframes, lanes], then the overflow
+    flags.  Calling the runner does both."""
 
     def __init__(self, plan: _EncPlan, nframes: int, device):
         self.plan = plan
         self.F = nframes
         self.device = torch.device(device)
         self.lane_p, self.lane_qhl, self.thresh = [], [], []
-        for g in plan.groups:
+        # per group None, or K5's lanes: (K3's p of the first run, true
+        # heights, passes)
+        self.lane_refine = []
+
+        def lanes(g, vals, mode='constant'):
             pad = g.n_pad - len(g.lanes)
-            p = np.pad(np.array(g.p, np.int32), (0, pad), mode='edge')
-            qhl = np.pad(np.array([(h_t + 1) // 2 for (_, _, h_t) in
-                                   g.lanes], np.int32), (0, pad))
-            self.lane_p.append(torch.from_numpy(np.tile(p, nframes))
-                               .to(self.device))
-            self.lane_qhl.append(torch.from_numpy(np.tile(qhl, nframes))
-                                 .to(self.device))
+            v = np.pad(np.array(vals, np.int32), (0, pad), mode=mode)
+            return torch.from_numpy(np.tile(v, nframes)).to(self.device)
+
+        for g in plan.groups:
+            self.lane_p.append(lanes(g, g.p, 'edge'))
+            self.lane_qhl.append(lanes(g, [(h_t + 1) // 2
+                                           for (_, _, h_t) in g.lanes]))
             self.thresh.append(torch.tensor(g.thresh, dtype=torch.int64,
                                             device=self.device))
+            self.lane_refine.append(None if not g.rcap else (
+                lanes(g, [p + m for p, m in zip(g.p, g.multi)], 'edge'),
+                lanes(g, [h_t for (_, _, h_t) in g.lanes]),
+                lanes(g, [plan.passes if m else 0 for m in g.multi])))
 
     def __call__(self, *planes):
         return self.tier1(self.graph(*planes))
@@ -220,13 +256,25 @@ class _EncRunner:
 
     def tier1(self, batches):
         cats, bits, nzs, ovfs = [], [], [], []
-        for g, (buf, nz), p, qhl in zip(self.plan.groups, batches,
-                                        self.lane_p, self.lane_qhl):
-            cat, b, ovf = encode_cleanup(buf, p, g.w, g.h, g.caps, qhl)
-            cats.append(cat)
-            bits.append(b.reshape(-1))
+        for g, (buf, nz), p, qhl, ref in zip(
+                self.plan.groups, batches, self.lane_p, self.lane_qhl,
+                self.lane_refine):
+            if ref is None:
+                runs = [encode_cleanup(buf, p, g.w, g.h, g.caps, qhl)]
+            else:
+                # the multi-pass lanes' cleanup one plane coarser, their
+                # refinement passes, then every lane's cleanup-only choice
+                pm, h_lim, npasses = ref
+                first = encode_cleanup(buf, pm, g.w, g.h, g.caps, qhl)
+                seg = encode_refine(buf, pm, h_lim, npasses,
+                                    self.plan.causal, g.w, g.h, g.rcap)
+                runs = [first, encode_cleanup(buf, p, g.w, g.h, g.caps,
+                                              qhl), seg]
+            for cat, b, ovf in runs:
+                cats.append(cat)
+                bits.append(b.reshape(-1))
+                ovfs.append(ovf.to(torch.int32))
             nzs.append(nz.reshape(-1).to(torch.int32))
-            ovfs.append(ovf.to(torch.int32))
         # one small aux buffer -> one host fetch
         return tuple(cats), torch.cat(bits + nzs + ovfs)
 
@@ -245,38 +293,75 @@ def _make_enc_runner(plan: _EncPlan, nframes: int = 1,
 def _fetch_outs(plan: _EncPlan, cats, aux, nframes: int):
     """Device outputs -> host: the aux buffer first, then the used word
     prefix of every lane's streams, compacted on the device and copied
-    in one transfer.  Raises RuntimeError on any overflow (the caps are
-    worst-case bounds, so an overflow is a fault, not a fallback).
-    Returns (dense uint32 words, per group the pack_from_dense meta
-    [nframes*n_pad, 6] and the non-zero flags [nframes, lanes])."""
+    in one transfer.  On a multi-pass group a lane keeps its passes
+    where its refinement segment holds 1 to _MAX_SEG2 - 1 bytes: its
+    cleanup words then come from the group's first K3 run and its
+    segment from K5, else its words from the second run.  Raises
+    RuntimeError on any overflow (the caps are worst-case bounds, so an
+    overflow is a fault, not a fallback).  Returns (dense uint32 words,
+    per group the pack_from_dense meta [nframes*n_pad, 6], its non-zero
+    flags [nframes, lanes], and None or, for a multi-pass group, the
+    lanes' (kept flags, segment word offsets into ``dense``, SigProp and
+    MagRef byte counts [nframes*n_pad, 2]))."""
     F = nframes
     aux = aux.cpu().numpy()  # waits for the runner
     pos = 0
-    bits_all = []
+
+    def take(n, cols):
+        nonlocal pos
+        pos += n * cols
+        return aux[pos - n * cols:pos].reshape(n, cols).astype(np.int64)
+
+    counts = []  # per group (bits of the first run, None | (bits, lens))
     for g in plan.groups:
-        bits_all.append(aux[pos:pos + F * g.n_pad * 3]
-                        .reshape(F * g.n_pad, 3).astype(np.int64))
-        pos += F * g.n_pad * 3
+        nl = F * g.n_pad
+        first = take(nl, 3)
+        counts.append((first, (take(nl, 3), take(nl, 2)) if g.rcap
+                       else None))
     nz_all = []
     for g in plan.groups:
-        nl = F * len(g.lanes)
-        nz_all.append(aux[pos:pos + nl].reshape(F, len(g.lanes)) != 0)
-        pos += nl
+        nz_all.append(take(F, len(g.lanes)) != 0)
     if aux[pos:].any():
-        raise RuntimeError('HT cleanup encoder: a lane overflowed its word '
-                           'caps')
-    cnt_l, sb_l = [], []
+        raise RuntimeError('HT encoder: a lane overflowed its word caps')
+    # per lane its segments' first words in the concatenated cats and
+    # their word counts: the cleanup's three streams, then on a
+    # multi-pass group the refinement segment
+    sb_l, cnt_l, chosen, keeps = [], [], [], []
     base = 0
-    for g, bits in zip(plan.groups, bits_all):
+    for g, (bits, more) in zip(plan.groups, counts):
         nl = F * g.n_pad
         wm, wv, _ = g.caps
         wtot = sum(g.caps)
-        # stream si of lane l sits at flat [base + l*wtot + off[si], ...)
-        off = np.array([0, wm, wm + wv], np.int64)
         lanes = np.arange(nl, dtype=np.int64)[:, None]
-        sb_l.append((base + lanes * wtot + off[None, :]).reshape(-1))
-        cnt_l.append(((bits + 31) // 32).reshape(-1))
+        # stream si of lane l of a run at rbase sits at flat
+        # [rbase + l*wtot + off[si], ...)
+        off = np.array([0, wm, wm + wv], np.int64)
+        segs = base + lanes * wtot + off[None, :]
         base += nl * wtot
+        keep = None
+        if more is not None:
+            bits2, lens = more
+            multi = np.tile(np.pad(np.array(g.multi, bool),
+                                   (0, g.n_pad - len(g.lanes))), F)
+            seg = lens.sum(1)
+            keep = multi & (seg > 0) & (seg < _MAX_SEG2)
+            # the cleanup-only choice: the second run's words
+            second = (multi & ~keep)[:, None]
+            segs = np.where(second, segs + nl * wtot, segs)
+            bits = np.where(second, bits2, bits)
+            base += nl * wtot
+            segs = np.concatenate([segs, base + lanes * g.rcap], 1)
+            base += nl * g.rcap
+            cnt = np.concatenate([(bits + 31) // 32,
+                                  np.where(keep, (seg + 3) // 4, 0)[:, None]],
+                                 1)
+            keeps.append((keep, lens))
+        else:
+            cnt = (bits + 31) // 32
+            keeps.append(None)
+        sb_l.append(segs.reshape(-1))
+        cnt_l.append(cnt.reshape(-1))
+        chosen.append(bits)
     cnts = np.concatenate(cnt_l)
     seg_base = np.concatenate(sb_l)
     # chunk-aligned layout: each segment starts on a chunk boundary
@@ -292,36 +377,39 @@ def _fetch_outs(plan: _EncPlan, cats, aux, nframes: int):
     if dense.size == 0:
         dense = np.zeros(1, np.uint32)
     seg_off = ch_off * _CHUNK
-    metas = []
+    metas, refs = [], []
     at = 0
-    for g, bits in zip(plan.groups, bits_all):
+    for g, bits, kept in zip(plan.groups, chosen, keeps):
         nl = F * g.n_pad
+        k = 3 if kept is None else 4
+        offs = seg_off[at:at + nl * k].reshape(nl, k)
+        at += nl * k
         meta = np.empty((nl, 6), np.int64)
-        meta[:, 0::2] = seg_off[at:at + nl * 3].reshape(nl, 3)
+        meta[:, 0::2] = offs[:, :3]
         meta[:, 1::2] = bits
-        at += nl * 3
         metas.append(meta)
-    return dense, metas, nz_all
+        refs.append(None if kept is None
+                    else (kept[0], offs[:, 3], kept[1]))
+    return dense, metas, nz_all, refs
 
 
 class GpuEncoder(Encoder):
     """Encoder whose sample conversion, colour transform, DWT,
-    quantization and HT cleanup encoder run on ``device`` ('cuda' by
-    default; 'cpu' runs the kernel's plain version).  Byte stuffing and
+    quantization and HT block encoders run on ``device`` ('cuda' by
+    default; 'cpu' runs the kernels' plain versions).  Byte stuffing and
     Tier-2 run on the host.  Part-2 decomposition structures
     (``dfs_list=``) and wavelet kernels (``atks=``) are taken as the JAX
     package's Encoder takes them.  Bands of 31 or more bit planes are
-    coded by the HT cleanup encoder's 64-bit instantiation.  Multi-pass
-    codeblocks, outside this slice, raise NotImplementedError naming
-    their ROADMAP.md item."""
+    coded by the HT cleanup encoder's 64-bit instantiation.  With
+    ``ht_passes`` 2 or 3 the eligible codeblocks carry SigProp [and
+    MagRef] passes coded by the refinement-pass encoder (K5), as the JAX
+    package's Encoder codes them (see the module docstring)."""
 
     def __init__(self, *args, device='cuda', **kwargs):
         self.device = resolve_device(device)
         super().__init__(*args, **kwargs)
 
     def _build_enc_plan(self, geom) -> _EncPlan:
-        if self.ht_passes != 1:
-            raise NotImplementedError(_ROADMAP_MULTIPASS)
         groups: Dict[int, _EncGroup] = {}
         bands: List[tuple] = []
         comps = []
@@ -339,6 +427,8 @@ class GpuEncoder(Encoder):
                     # a wide band's samples are uint64 (codec.py:828-829)
                     wide = _wide(sb.kmax, rev)
                     top = 63 if wide else 31
+                    # SigProp / MagRef on this band (codec.py:831)
+                    multi = self.ht_passes > 1 and not wide and sb.kmax >= 2
                     bid = len(bands)
                     bands.append((c, r, b, sb.kmax, float(sb.delta),
                                   rev, sb.rect.h, sb.rect.w))
@@ -357,6 +447,7 @@ class GpuEncoder(Encoder):
                         grp.lanes.append((bid, bi, g.rect.h))
                         grp.h = max(grp.h, g.rect.h)
                         grp.p.append(top - sb.kmax)
+                        grp.multi.append(multi)
                         grp.thresh.append(1 << (top - sb.kmax))
                         y0 = g.rect.y0 - sb.rect.y0
                         x0 = g.rect.x0 - sb.rect.x0
@@ -415,10 +506,14 @@ class GpuEncoder(Encoder):
                       _ebucket(qh * pairs * vlc // 32 + 2),
                       _ebucket(qw * qh * 4 * (kx + 1) // 32 + 2))
             g.n_pad = -(-len(g.lanes) // 8) * 8
+            if any(g.multi):
+                g.rcap = -(-cap_words(g.w, g.h) // _CHUNK) * _CHUNK
+        passes, causal = self.ht_passes, self.cod.vert_causal
         key = (tuple((g.gid, g.w, g.h, len(g.lanes), tuple(g.strips),
-                      tuple(g.p), g.caps, g.bits) for g in glist),
-               tuple(bands), tuple(comps), mct)
-        return _EncPlan(key, glist, bands, comps, mct)
+                      tuple(g.p), g.caps, g.bits, tuple(g.multi), g.rcap)
+                     for g in glist),
+               tuple(bands), tuple(comps), mct, passes, causal)
+        return _EncPlan(key, glist, bands, comps, mct, passes, causal)
 
     @torch.inference_mode()
     def _encode_tile(self, idx: int, tr, planes: List[np.ndarray]) \
@@ -451,10 +546,11 @@ class GpuEncoder(Encoder):
             outs = _fetch_outs(plan, cats, aux, len(codeds))
         self._stuff(plan, *outs, codeds)
 
-    def _stuff(self, plan, dense, metas, nz_all, codeds):
+    def _stuff(self, plan, dense, metas, nz_all, refs, codeds):
         """Host byte stuffing (pack_from_dense) of every frame's lanes
-        into cleanup segments, filling ``codeds``."""
-        for g, meta, nz in zip(plan.groups, metas, nz_all):
+        into cleanup segments, filling ``codeds``; a kept multi-pass
+        lane's refinement segment is K5's bytes as they are."""
+        for g, meta, nz, ref in zip(plan.groups, metas, nz_all, refs):
             L = len(g.lanes)
             # stuffing can expand the packed bytes by up to 8/7
             stride = int(meta[:, 1::2].sum(axis=1).max()) // 7 + 64
@@ -465,10 +561,13 @@ class GpuEncoder(Encoder):
                     dense, real.reshape(-1, 6), out_stride=stride)
             with trace.stage('encode.pack.fill'):
                 for f, coded in enumerate(codeds):
-                    self._fill_coded(plan, g, coded, out[f * L:(f + 1) * L],
-                                     lens[f * L:(f + 1) * L], nz[f])
+                    lanes = slice(f * g.n_pad, f * g.n_pad + L)
+                    self._fill_coded(
+                        plan, g, coded, out[f * L:(f + 1) * L],
+                        lens[f * L:(f + 1) * L], nz[f], dense,
+                        None if ref is None else [r[lanes] for r in ref])
 
-    def _fill_coded(self, plan, g, coded, out, lens, nz):
+    def _fill_coded(self, plan, g, coded, out, lens, nz, dense, ref):
         for lane, (bid, bi, h_t) in enumerate(g.lanes):
             (c, r, b, kmax, _, _, _, _) = plan.bands[bid]
             cb = coded[c][r][b][bi]
@@ -477,9 +576,19 @@ class GpuEncoder(Encoder):
             if lens[lane] == 0:
                 raise RuntimeError('HT cleanup encoder: a segment '
                                    'overflowed the host stuffer')
+            seg1 = bytes(out[lane, :lens[lane]])
+            if ref is not None and ref[0][lane]:
+                at, n = int(ref[1][lane]), int(ref[2][lane].sum())
+                seg2 = dense[at:at + (n + 3) // 4].view(np.uint8)[:n]
+                cb.missing_msbs = kmax - 2
+                cb.num_passes = plan.passes
+                cb.data = seg1 + seg2.tobytes()
+                cb.pass_length[0] = len(seg1)
+                cb.pass_length[1] = n
+                continue
             cb.missing_msbs = kmax - 1
             cb.num_passes = 1
-            cb.data = bytes(out[lane, :lens[lane]])
+            cb.data = seg1
             cb.pass_length[0] = int(lens[lane])
 
 

@@ -1,7 +1,9 @@
 """What the port's tests and ``chip_smoke.py`` share of the scale-out
 checks: the launcher of gloo ranks (``python -m`` workers on a free
 localhost port) and the sources of the mosaic fixtures
-(``openjph_tpu_torch/testdata/mosaic_*``)."""
+(``openjph_tpu_torch/testdata/mosaic_*``); also the source and keywords of
+the multi-pass fixture whose codeblocks take both choices
+(``MIXED_PASSES``)."""
 import os
 import socket
 import subprocess
@@ -89,3 +91,24 @@ def mosaic_fixture_sources():
         ([noise], dict(reversible=False, base_delta=0.01, **t64)),
         ([p3], dict(reversible=True, ht_passes=3, **t64)),
         ([p3], dict(reversible=True, **t64)))))
+
+
+# openjph_tpu_torch/testdata/<MIXED_PASSES>.j2c: a 3-pass stream whose
+# non-zero codeblocks are both kept multi-pass ones and cleanup-only ones
+MIXED_PASSES = 'gray_256x128_rev_p3_mixed'
+MIXED_PASSES_KWARGS = dict(reversible=True, num_decomps=2,
+                           block_size=(32, 32), ht_passes=3)
+
+
+def mixed_passes_source():
+    """The 256x128 source of MIXED_PASSES: noise on the left half (its
+    codeblocks keep their SigProp / MagRef passes) and a flat right half
+    with sparse +-1 samples, whose codeblocks have no sample significant
+    in the cleanup pass one plane coarser, so no refinement bits: those
+    are coded cleanup-only."""
+    rng = np.random.RandomState(2013)
+    img = np.full((128, 256), 128, np.int32)
+    img[:, :128] = rng.randint(0, 256, (128, 128))
+    speck = rng.rand(128, 128) < 0.02
+    img[:, 128:] += np.where(speck, rng.choice([-1, 1], (128, 128)), 0)
+    return img

@@ -22,10 +22,11 @@ with the tile count (tiles of one geometry share a cached plan
 skeleton, gpu/pipeline.py::_plan_skeleton).  Decode runs K2 (raw readers, the
 default) or K1 (dense), and K4 on classes with refinement passes;
 encode runs K3 (its 64-bit instantiation on bands of more than 30 bit
-planes).  Nothing falls back: what the fused runners cannot take raises,
-naming its ROADMAP.md item, and where the JAX package's mosaics refuse a
-stream of more than 30 bit planes (decode, and the chunked encode), so
-do these, with its ValueError.
+planes) and, with ``ht_passes`` 2 or 3, K5.  Nothing falls back: what
+the fused runners cannot take raises, and where the JAX package's
+mosaics refuse a stream (decode of more than 30 bit planes, and the
+chunked encode of a stream its fused plan cannot take: more than 30 bit
+planes, or multi-pass), so do these, with its ValueError.
 """
 from __future__ import annotations
 
@@ -47,11 +48,12 @@ from ..gpu.pipeline import (GpuDecoder, _bucket, _build_plan,
 from ..utils import trace
 from .mesh import Mesh, make_mesh, pad_to_multiple, per_device
 
-# the JAX package's refusals (openjph_tpu/parallel/tiles.py:89-91, 335-338)
+# the JAX package's refusals (openjph_tpu/parallel/tiles.py:89-91,
+# 335-338); the second also refuses a multi-pass chunked encode
 _WIDE_DECODE = ('>30 bit-plane streams take the host path; mosaic sharding '
                 'unsupported')
-_WIDE_CHUNKED = ('stream not eligible for the fused encode path; chunked '
-                 'ingest needs it')
+_NOT_FUSED_CHUNKED = ('stream not eligible for the fused encode path; '
+                      'chunked ingest needs it')
 
 def _frames(T: int, ndev: int) -> int:
     """Frames of a sub-batch of T tiles: a _bucket size at least the
@@ -218,10 +220,12 @@ class MosaicEncoder:
     devices; byte stuffing, Tier-2 and assembly run on the host.  The
     output is byte-identical to ``encode_gpu``'s.  The keywords are
     openjph_tpu.encode's.  Bands of 31 or more bit planes go through
-    K3's 64-bit instantiation in ``encode``; ``encode_chunked`` refuses
-    them with the JAX package's ValueError.  Multi-pass encoding raises
-    NotImplementedError naming its ROADMAP.md item (12), and a K3
-    overflow RuntimeError, as ``encode_gpu`` does."""
+    K3's 64-bit instantiation in ``encode``, and multi-pass codeblocks
+    (``ht_passes`` 2 or 3) through K3 and K5, as ``encode_gpu`` codes
+    them; ``encode_chunked`` refuses both with the JAX package's
+    ValueError (its fused plan takes neither, and its chunked ingest has
+    no whole image to code them from).  A K3 or K5 overflow raises
+    RuntimeError, as ``encode_gpu`` does."""
 
     def __init__(self, mesh: Optional[Mesh] = None,
                  batch_tiles: int = 64, **enc_kwargs):
@@ -267,6 +271,11 @@ class MosaicEncoder:
                                               device=self.mesh.devices[0]),
                             **self._kwargs)
         trs = build_tile_grid(enc.siz)
+        if chunked and enc.ht_passes != 1:
+            # the JAX package's fused plan takes no multi-pass stream
+            # (tpu/encode_pipeline.py:105-106), so its chunked ingest
+            # refuses one
+            raise ValueError(_NOT_FUSED_CHUNKED)
         # geometry classes (encode plan keys are geometry-only); a tile's
         # geometry and plan build when the class pass or its sub-batch
         # needs them, and only each class's first plan is kept, so host
@@ -278,7 +287,7 @@ class MosaicEncoder:
             if chunked and any(g.bits == 64 for g in plan.groups):
                 # the JAX package codes such a tile on its host, from the
                 # whole image, which chunked ingest does not have
-                raise ValueError(_WIDE_CHUNKED)
+                raise ValueError(_NOT_FUSED_CHUNKED)
             cls = by_key.get(plan.key)
             if cls is None:
                 cls = by_key[plan.key] = {'plan': plan, 'tiles': []}

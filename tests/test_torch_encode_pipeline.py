@@ -27,6 +27,7 @@ import openjph_tpu_torch
 from openjph_tpu_torch.codec import build_encoder
 from openjph_tpu_torch.core import markers as mk
 from openjph_tpu_torch.core.geometry import build_tile, build_tile_grid
+from openjph_tpu_torch.core.message import OjphError
 from openjph_tpu_torch.gpu import block_encode_cuda as E
 from openjph_tpu_torch.gpu import encode_pipeline as ep
 
@@ -180,13 +181,17 @@ def test_dfs_encode_matches_jax_host_encoder():
 
 
 def test_configurations_outside_the_slice_raise():
-    """Multi-pass encoding (ROADMAP 12) still raises; 30-bit samples,
-    whose bands reach 31 bit planes (ROADMAP 7c), now encode as the JAX
-    package does."""
+    """Configurations the early slices refused now encode as the JAX
+    package does: multi-pass (ROADMAP 12; tests/test_torch_multipass_
+    encode.py has the other cases), and 30-bit samples, whose bands
+    reach 31 bit planes (ROADMAP 7c).  A configuration the JAX package
+    refuses raises its error."""
     img = _img(14, 40, 48)
-    with pytest.raises(NotImplementedError,
-                       match=r'ROADMAP\.md.*Multi-pass'):
-        openjph_tpu_torch.encode_gpu(img, device='cpu', ht_passes=2)
+    got = openjph_tpu_torch.encode_gpu(img, device='cpu', ht_passes=2)
+    ref = encode(img, ht_passes=2)
+    assert got[got.index(b'\xff\x90'):] == ref[ref.index(b'\xff\x90'):]
+    with pytest.raises(OjphError, match='ht_passes must be 1, 2 or 3'):
+        openjph_tpu_torch.encode_gpu(img, device='cpu', ht_passes=4)
     wide = np.random.RandomState(14).randint(0, 1 << 30, (40, 48))
     got = openjph_tpu_torch.encode_gpu(wide, device='cpu', bit_depth=30)
     ref = encode(wide, bit_depth=30)

@@ -336,11 +336,22 @@ def test_stream_begin_refuses_tlm():
 
 
 def test_mosaic_encoder_raises_instead_of_falling_back():
+    """Multi-pass tiles (ROADMAP 12) encode through K3 and K5 to what the
+    JAX package's MosaicEncoder gives (its scalar fallback,
+    parallel/tiles.py:333-339); the chunked ingest refuses them with its
+    ValueError (:335-338) instead of falling back."""
     img = _noise(3, (64, 64))
-    me = MosaicEncoder(_mesh(), reversible=True, num_decomps=1,
-                       tile_size=(32, 32), ht_passes=3)
-    with pytest.raises(NotImplementedError, match='Multi-pass encode'):
-        me.encode([img])
+    kw = dict(reversible=True, num_decomps=1, tile_size=(32, 32),
+              ht_passes=3)
+    me = MosaicEncoder(_mesh(), **kw)
+    want = JaxMosaicEncoder(**kw).encode([img])
+    assert want == encode(img, **kw)
+    assert me.encode([img]) == want
+    msg = 'stream not eligible for the fused encode path; chunked ingest'
+    with pytest.raises(ValueError, match=msg):
+        JaxMosaicEncoder(**kw).encode_chunked(_tile_reader(img), (64, 64))
+    with pytest.raises(ValueError, match=msg):
+        me.encode_chunked(_tile_reader(img), (64, 64), out=io.BytesIO())
 
 
 def test_mosaic_decoder_refuses_wide_bands():

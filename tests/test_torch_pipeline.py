@@ -170,6 +170,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     # the scale-out package is walked too
     assert {os.path.join('openjph_tpu_torch', 'parallel', f + '.py')
             for f in ('mesh', 'tiles', 'dwt_sharded', 'multihost')} <= names
+    # ... and the refinement-pass encoder (K5) and its wrapper
+    assert {os.path.join('openjph_tpu_torch', 'gpu', f + '.py')
+            for f in ('block_refine_encode', 'block_refine_encode_cuda')} \
+        <= names
 
 
 def test_packaging_lists_every_port_package():
@@ -190,6 +194,7 @@ def test_importing_the_port_loads_no_jax():
             'import openjph_tpu_torch.gpu.encode_pipeline\n'
             'import openjph_tpu_torch.gpu.block_encode_cuda\n'
             'import openjph_tpu_torch.gpu.block_refine_cuda\n'
+            'import openjph_tpu_torch.gpu.block_refine_encode_cuda\n'
             'import openjph_tpu_torch.gpu.staging\n'
             'import openjph_tpu_torch.parallel.tiles\n'
             'import openjph_tpu_torch.parallel.dwt_sharded\n'

@@ -9,6 +9,7 @@ import pytest
 from openjph_tpu import decode, encode, encode_tpu_batch
 
 import openjph_tpu_torch
+from openjph_tpu_torch.core.message import OjphError
 from openjph_tpu_torch.gpu import encode_pipeline as te
 
 
@@ -70,11 +71,21 @@ def test_multi_tile_frame_encodes_frame_by_frame(rng):
 
 
 def test_encode_errors_surface_at_collect(rng):
-    """A configuration outside the port (multi-pass encode) raises its
-    NotImplementedError at collect, not inside the worker."""
+    """A configuration the encoder refuses (four HT passes) raises its
+    error at collect, not inside the worker; a multi-pass one (ROADMAP
+    12, once refused here) gives the JAX package's codestreams."""
+    frame = rng.randint(0, 256, (32, 32)).astype(np.int32)
     ve = te.VideoEncoder(device='cpu', reversible=True, num_decomps=2,
-                         ht_passes=2)
-    ve.submit([rng.randint(0, 256, (32, 32)).astype(np.int32)])
-    with pytest.raises(NotImplementedError, match='Multi-pass encode'):
+                         ht_passes=4)
+    ve.submit([frame])
+    with pytest.raises(OjphError, match='ht_passes must be 1, 2 or 3'):
         ve.collect()
     ve.close()
+    ve = te.VideoEncoder(device='cpu', reversible=True, num_decomps=2,
+                         ht_passes=2)
+    ve.submit([frame, frame[::-1].copy()])
+    got = ve.collect()
+    ve.close()
+    assert ve.fused_bursts == 1
+    assert got == [encode(f, reversible=True, num_decomps=2, ht_passes=2)
+                   for f in (frame, frame[::-1])]
