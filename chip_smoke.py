@@ -73,6 +73,10 @@ host clock), and prints one JSON line per result.
                                                       # kernel
     python3 chip_smoke.py --against-refine OTHER.cu   # ... of the
                                                       # refinement kernel
+    python3 chip_smoke.py --against-refine-encode OTHER.cu
+                                                      # ... of the
+                                                      # refinement-pass
+                                                      # encoder
     python3 chip_smoke.py --mosaic-100k               # also the
                                                       # 100000x100000
                                                       # mosaic (9,604 tiles)
@@ -3134,12 +3138,15 @@ def wide_phase(gray, gray_ref, dev, kernels, K, E, R, card_id):
 P3_KW = dict(reversible=True, num_decomps=5, ht_passes=3)
 P2C_KW = dict(reversible=True, num_decomps=5, ht_passes=2, vert_causal=True)
 # integer operations per codeblock sample of the refinement-pass encoder,
-# counted off ht_refine_encode.cu: ~12 for phase A (a load, three tests
-# and shifts, ORs), ~3 for its shuffles and stores (per column), ~6 for
-# MagRef (a column's nibbles, pext, the scan and two atomics over four
-# samples), ~5 for SigProp (a group's ~50-op context over 16 samples, ~10
-# a candidate, ~6 a sign) and ~2 for stuffing (~12 a byte of 7-8 bits)
-REFINE_ENC_OPS_PER_SAMPLE = 28
+# counted off ht_refine_encode.cu on a dense 64x64 block: ~10 for phase A
+# (a sample's three tests, shifts and ORs), ~13 for SigProp's decisions (a
+# group's inputs, its map walked on five packed spreads and its replay:
+# ~215 ops over 16 samples), ~8 for the maps' scan (four steps of ~30 ops
+# a group), ~10 for the records (three bit gathers of ~45 ops, popcounts,
+# the placing ORs, over 16 samples) and ~15 for the packers (~12.5 a
+# coded bit: a chunk's event masks and 16 states, the tables' composition
+# and scan, two byte-by-byte replays; ~1.2 coded bits a sample)
+REFINE_ENC_OPS_PER_SAMPLE = 56
 
 
 def k5_groups(frames, dev, passes=None, causal=None, **kwargs):
@@ -3276,11 +3283,21 @@ def k5_synthetic(dev, card_id: str, lanes: int = 192, seed: int = 13):
          max_spp_bytes_max_mrp_bytes_empty_lanes=res, card=card_id)
 
 
+def k5_ms(groups, launch=None) -> float:
+    """K5's device time on ``groups`` (one launch a group, summed), by
+    default through the wrapper at its PER_BLOCK."""
+    from openjph_tpu_torch.gpu import block_refine_encode_cuda as R5
+    fn = launch or R5.encode_refine
+    return sum(cuda_ms(lambda: fn(*a), 20) for _, a in groups)
+
+
 def k5_vs_plain(frames, name: str, dev, card_id: str, row: bool = False):
     """K5 against its plain version on every lane of a runner call on
     ``frames`` (the 3-pass fixture's keywords) at 2 and 3 passes, causal
-    off and on; with ``row``, its time on the frames' lanes as coded and
-    its kernels-line row."""
+    off and on; then its time on the frames' lanes as coded, at 1, 2 and
+    4 codeblocks a CUDA block too.  With ``row``, also the k5_split
+    line (the lanes at npasses 0, 2 and 3: the output alone; phase A,
+    SigProp and its packer; all) and its kernels-line row."""
     from openjph_tpu_torch.gpu import block_refine_encode_cuda as R5
     checked = []
     for passes in (3, 2):
@@ -3291,35 +3308,106 @@ def k5_vs_plain(frames, name: str, dev, card_id: str, row: bool = False):
                                              f'causal={causal}')
             if passes == 3 and not causal:
                 coded = (groups, plain_ms, outs)
+            elif passes == 2 and not causal:
+                two = groups
             checked.append([passes, causal,
                             sum(int(o[1].sum()) for o in outs)])
     groups, plain_ms, outs = coded
     lanes = sum(a[0].shape[0] for _, a in groups)
-    fields = {}
-    if row:
-        ms = sum(cuda_ms(lambda: R5.encode_refine(*a), 20) for _, a in groups)
-        nbytes, ops = k5_bound(groups, outs)
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / FP32_OPS_PER_S * 1e3
-        fields = dict(kernel_ms=ms, bytes_moved=nbytes,
-                      bound_ms=max(bytes_ms, ops_ms),
-                      codeblocks_per_block=R5.PER_BLOCK)
+    ms = k5_ms(groups)
+    sweep = {}
+    default = R5.PER_BLOCK
+    try:
+        for k in (1, 2, 4):
+            R5.PER_BLOCK = k
+            sweep[k] = k5_ms(groups)
+    finally:
+        R5.PER_BLOCK = default
+    nbytes, ops = k5_bound(groups, outs)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
     emit('k5_vs_plain', frame=name, frames=len(frames), lanes=lanes,
          groups=[gname for gname, _ in groups], bit_exact=True,
          passes_causal_segment_bytes=checked, plain_ms=plain_ms,
-         card=card_id, **fields)
+         kernel_ms=ms, bytes_moved=nbytes, bound_ms=max(bytes_ms, ops_ms),
+         codeblocks_per_block=R5.PER_BLOCK,
+         kernel_ms_by_codeblocks_per_block=sweep, card=card_id)
     if not row:
         return None
+    # where the time goes, by the kernel's own gate: npasses 0 (launch,
+    # lane exit and the zeroed segments), 2 (phase A, SigProp's decisions,
+    # records and packer), 3 (MagRef's records and packer too)
+    _, none = k5_groups(frames, dev, passes=0, **P3_KW)
+    split = {0: k5_ms(none), 2: k5_ms(two), 3: ms}
+    emit('k5_split', frame=name, lanes=lanes, npasses0_ms=split[0],
+         npasses2_ms=split[2], npasses3_ms=split[3],
+         phase_a_sigprop_packer_ms=split[2] - split[0],
+         magref_ms=split[3] - split[2], card=card_id)
     return {
         'name': 'ht_refine_encode', 'route': 'cuda',
         'source': 'openjph_tpu_torch/gpu/csrc/ht_refine_encode.cu',
         # no TPU kernel is behind it: the JAX package's host coder
         'replaces': 'openjph_tpu/coding/encoder.py:460',
-        'launches': 0, 'max_abs_err': 0, 'ms': fields['kernel_ms'],
-        'plain_ms': plain_ms, 'bound_ms': fields['bound_ms'],
+        'launches': 0, 'max_abs_err': 0, 'ms': ms,
+        'plain_ms': plain_ms, 'bound_ms': max(bytes_ms, ops_ms),
         'bound_by': 'bytes' if bytes_ms >= ops_ms else 'operations',
         'library_ms': None, 'bit_exact': True,
     }
+
+
+def against_refine_encode(src: str, dev, card_id: str):
+    """``--against-refine-encode SRC``: another source of the
+    refinement-pass encoder with the same C interface (launched with four
+    codeblocks a CUDA block) and this checkout's, on the 3-pass frame's
+    lanes and on an 8-frame burst's: equal outputs on every lane, then
+    their times in turns (against, this, this, against); on the frame
+    also both split by the npasses gate, as k5_split splits this one."""
+    import numpy as np
+    import torch
+    from openjph_tpu_torch.gpu import block_refine_encode_cuda as R5
+    lib = R5.build(os.path.abspath(src), 'ht_refine_encode_against')
+
+    def other(*a):
+        return R5.launch(lib, 4, *a)
+
+    def this(*a):
+        return R5.launch(R5.load(), R5.PER_BLOCK, *a)
+
+    frames = [[f] for f in video_frames(np.load(GRAY_NPY))[:BURST]]
+    for name, ff in (('gray_2048x1080', frames[:1]),
+                     ('gray_2048x1080_rolled_burst', frames)):
+        _, groups = k5_groups(ff, dev, **P3_KW)
+        for gname, a in groups:
+            got, want = this(*a), other(*a)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(got, want)):
+                raise AssertionError(f'ht_refine_encode: {src} and this '
+                                     f'checkout differ in group {gname} '
+                                     f'of {name}')
+
+        def turns(gg):
+            t = {'against': [], 'this': []}
+            for who in ('against', 'this', 'this', 'against'):
+                t[who].append(k5_ms(gg, other if who == 'against' else this))
+            return t
+
+        times = turns(groups)
+        split = {}
+        if len(ff) == 1:
+            for k in (0, 2):
+                t = turns(k5_groups(ff, dev, passes=k, **P3_KW)[1])
+                split[f'npasses{k}'] = {w: statistics.mean(v)
+                                        for w, v in t.items()}
+            split['npasses3'] = {w: statistics.mean(v)
+                                 for w, v in times.items()}
+        old = statistics.mean(times['against'])
+        new = statistics.mean(times['this'])
+        emit('against_refine_encode', kernel='ht_refine_encode', frame=name,
+             source=src, equal=True,
+             lanes=sum(a[0].shape[0] for _, a in groups),
+             against_ms=times['against'], this_ms=times['this'],
+             speedup=old / new, split_ms=split,
+             this_codeblocks_per_block=R5.PER_BLOCK, card=card_id)
 
 
 def k3_multipass_vs_scalar(gray_ref, dev, card_id: str):
@@ -3569,6 +3657,9 @@ def main() -> int:
     ap.add_argument('--against-refine', metavar='SRC',
                     help='only time the refinement kernel built from SRC '
                          '(same decode entries) against this checkout\'s')
+    ap.add_argument('--against-refine-encode', metavar='SRC',
+                    help='only time the refinement-pass encoder built from '
+                         'SRC (same C interface) against this checkout\'s')
     ap.add_argument('--mosaic-100k', action='store_true',
                     help='also run the 100000x100000 mosaic (9,604 tiles, '
                          '~1.3 GB streamed to a file) in the mosaic_scale '
@@ -3596,6 +3687,9 @@ def main() -> int:
         return 0
     if opts.against_refine:
         against_refine(opts.against_refine, dev, card_id)
+        return 0
+    if opts.against_refine_encode:
+        against_refine_encode(opts.against_refine_encode, dev, card_id)
         return 0
     build_s, per_lib = build_all()
     emit('setup', card=card_id, torch=torch.__version__,

@@ -5,8 +5,9 @@ encode lane group, from the samples the cleanup encoder takes.
 No TPU kernel is behind it: the JAX package codes these passes on its
 host (coding/encoder.py::encode_spp_mrp).  A CPU tensor takes the plain
 PyTorch version (block_refine_encode.py).  A CUDA tensor launches the
-kernel or raises: there is no fallback.  The kernel codes one codeblock a
-warp, ``PER_BLOCK`` codeblocks a CUDA block.  It is compiled with nvcc for
+kernel or raises: there is no fallback.  The kernel codes a codeblock on
+two warps (MagRef's records and packer beside SigProp's chain),
+``PER_BLOCK`` codeblocks a CUDA block.  It is compiled with nvcc for
 sm_90a at first use into build/openjph_tpu_torch/ and bound with ctypes;
 it runs on the current CUDA stream and allocates nothing.  ``LAUNCHES``
 counts its launches.  The library and the count are guarded by one lock,
@@ -27,8 +28,10 @@ from .block_decode_cuda import _check, _i32
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'csrc',
                    'ht_refine_encode.cu')
 LAUNCHES = {'ht_refine_encode': 0}
-# codeblocks (warps) a CUDA block; each warp has its own shared memory
-PER_BLOCK = 4
+# codeblocks a CUDA block (1 to 4), each with its own shared memory: 2 was
+# the fastest on the 3-pass 2048x1080 frame's lanes and on an 8-frame
+# burst's on an H100 (chip_smoke.py's k5_vs_plain sweep)
+PER_BLOCK = 2
 
 _lib = None
 _LOCK = threading.Lock()
