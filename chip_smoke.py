@@ -62,7 +62,15 @@ as an 8192x8192 mosaic (64 tiles of 1024x1024, every tile lossless, the
 stream equal to encode_gpu of the whole image) and a 32768x32768 one
 (1,024 tiles, streamed to a file, decoded from an mmap of it) with their
 peak host RSS and device memory, the row-sharded DWT and the frame
-fan-out in two processes that share the card over gloo.  It
+fan-out in two processes that share the card over gloo; the fuzz
+harnesses (the `fuzz` phase): the 52 OpenJPH streams of
+fuzzing/seed_corpus/ and the decode fuzzer's 6 own seeds in both runner
+modes, strict and resilient, 96 mutated streams a runner mode in two
+processes of their own with the card's peak memory, 4 mutations of the
+gray frame, 48 random encode parameter sets and codeblocks of 1024x4,
+4x1024 and 4x4, each against the port's CPU path; and the entry
+point (the `entry` phase): entry()'s runner against the sample image and
+dryrun_multichip(1).  It
 times each stage (device stages with CUDA events, host stages with the
 host clock), and prints one JSON line per result.
 
@@ -2151,30 +2159,13 @@ def cleanup_blocks(dev):
     decoder's output."""
     import numpy as np
     from openjph_tpu_torch import native
-    from openjph_tpu_torch.codec import Decoder
+    from openjph_tpu_torch.entry import _full_blocks
     from openjph_tpu_torch.gpu.encode_pipeline import encode_gpu
     img = np.random.RandomState(1234).randint(0, 256, (256, 256)) \
         .astype(np.int32)
-    dec = Decoder(encode_gpu(img, device=dev, reversible=True,
-                             num_decomps=2))
-    out = []
-    for c, comp in enumerate(dec.tiles[0].geom.comps):
-        for r, res in enumerate(comp.resolutions):
-            for b in range(4):
-                sb = res.bands[b]
-                if sb is None or sb.empty:
-                    continue
-                coded = dec.tiles[0].coded[c][r][b]
-                for g in sb.blocks:
-                    cb = coded[g.cb_y * sb.num_cb_x + g.cb_x]
-                    if cb and cb.data and (g.rect.w, g.rect.h) == (64, 64):
-                        d = bytes(cb.data)
-                        lc = cb.pass_length[0]
-                        out.append((d, cb.missing_msbs, lc,
-                                    native.decode_codeblock(
-                                        d, cb.missing_msbs, 1, lc, 0, 64,
-                                        64)))
-    return out
+    stream = encode_gpu(img, device=dev, reversible=True, num_decomps=2)
+    return [(d, mm, lc, native.decode_codeblock(d, mm, 1, lc, 0, 64, 64))
+            for d, mm, lc in _full_blocks(stream)]
 
 
 def mosaic_phase(dev, kernels, K, E, R, R5, card_id):
@@ -3643,6 +3634,215 @@ def multipass_encode_phase(gray_ref, gray3_ref, rgb_planes, dev, kernels, K,
          card=card_id)
 
 
+# ---- the fuzz harnesses over the OpenJPH corpus (ROADMAP 13) and the
+# entry point (ROADMAP 14) ----
+
+FUZZ_MUTATIONS = 96       # mutated streams a runner mode, RandomState(0)
+FUZZ_GRAY_MUTATIONS = 4   # mutations of the gray frame, RandomState(1)
+FUZZ_PARAM_SETS = 48      # random_params sets, RandomState(0)
+FUZZ_CHILD_TIMEOUT = 300
+# codeblock shapes of the encode checks: (rows, columns) of the image,
+# block_size (width, height)
+FUZZ_BLOCK_ENCODES = (((16, 2048), (1024, 4)), ((2048, 16), (4, 1024)),
+                      ((64, 80), (4, 4)))
+
+
+def start_fuzz_child(dense: bool):
+    """The decode fuzzer's FUZZ_MUTATIONS mutations on the card in a
+    process of its own (one runner mode), its output to a file."""
+    import tempfile
+    log = tempfile.TemporaryFile(mode='w+')
+    cmd = [sys.executable, '-m', 'openjph_tpu_torch.fuzzing.fuzz_decode',
+           str(FUZZ_MUTATIONS), '0', '--device', 'cuda']
+    # two CPU threads each: the two processes and this one share the
+    # host's cores for their CPU references
+    env = dict(os.environ, OMP_NUM_THREADS='2')
+    return subprocess.Popen(cmd + (['--dense'] if dense else []), cwd=ROOT,
+                            env=env, stdout=log, stderr=subprocess.STDOUT,
+                            text=True), log
+
+
+def fuzz_child_stats(proc, log, label: str) -> dict:
+    """The stats line of a start_fuzz_child process, waited for at most
+    FUZZ_CHILD_TIMEOUT seconds and killed after."""
+    try:
+        proc.wait(timeout=FUZZ_CHILD_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f'the {label} mutations of seed 0 ran over '
+                             f'{FUZZ_CHILD_TIMEOUT} s') from None
+    log.seek(0)
+    out = log.read()
+    log.close()
+    lines = [ln for ln in out.splitlines() if ln.startswith('done: ')]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f'the {label} mutations exited '
+                             f'{proc.returncode}:\n{out[-6000:]}')
+    return json.loads(lines[-1][len('done: '):])
+
+
+def fuzz_phase(gray, dev, kernels, K, E, R, card_id):
+    """The decode fuzzer over the card (ROADMAP 13): the 52 streams of
+    fuzzing/seed_corpus/ and the 6 of make_seeds in both runner modes,
+    strict and resilient, against one CPU decode each; FUZZ_MUTATIONS
+    mutated streams a runner mode in two processes (fuzz_decode.run, the
+    JAX harness's draw) with the card's peak memory after 25 streams and
+    after all; FUZZ_GRAY_MUTATIONS mutations of the gray 2048x1080 frame;
+    the encode fuzzer's FUZZ_PARAM_SETS sets against the CPU encode and
+    FUZZ_BLOCK_ENCODES.  Counted: K1, K2, K3 and K4 must each launch."""
+    import numpy as np
+    import torch
+    from openjph_tpu_torch.fuzzing import fuzz_decode as FD
+    from openjph_tpu_torch.fuzzing import fuzz_encode as FE
+    from openjph_tpu_torch.gpu.encode_pipeline import encode_gpu
+    from openjph_tpu_torch.gpu.pipeline import decode_gpu
+    t_phase = time.perf_counter()
+    children = [(start_fuzz_child(dense), 'dense' if dense else 'raw')
+                for dense in (False, True)]
+    try:
+        names = [f[:-4] for f in sorted(os.listdir(FD.CORPUS))
+                 if f.endswith('.j2c')]
+        seeds = FD.make_seeds(dev)
+        names += [f'make_seeds_{k}' for k in range(len(seeds) - len(names))]
+        t0 = time.perf_counter()
+        refs = [FD.decode_or_error(s, 'cpu', False, False) for s in seeds]
+        seeds_cpu_s = time.perf_counter() - t0
+        bad = [n for n, (_, err) in zip(names, refs) if err is not None]
+        if bad:
+            raise AssertionError(f'the CPU decode rejects seeds {bad}')
+        rng = np.random.RandomState(1)
+        gray_cases = []
+        for k in range(FUZZ_GRAY_MUTATIONS):
+            data = FD.mutate(rng, gray)
+            gray_cases.append((data, FD.cpu_reference(data)))
+        sets = []
+        rng = np.random.RandomState(0)
+        for _ in range(FUZZ_PARAM_SETS):
+            sets.append(FE.random_params(rng))
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        K.reset_launches()
+        R.reset_launches()
+        E.reset_launches()
+        t0 = time.perf_counter()
+        for name, data, ref in zip(names, seeds, refs):
+            for raw in (True, False):
+                FD.check_stream(data, dev, raw, (ref, ref), name)
+        emit('fuzz_seeds', streams=len(seeds), corpus=len(FD.load_corpus()),
+             modes=['raw', 'dense'], strict_and_resilient=True,
+             equal_to_cpu=True, card_s=time.perf_counter() - t0,
+             cpu_reference_s=seeds_cpu_s)
+        outcomes = []
+        for k, (data, ref) in enumerate(gray_cases):
+            for raw in (True, False):
+                got = FD.check_stream(data, dev, raw, ref,
+                                      f'gray mutation {k} of seed 1')
+            outcomes.append(['accepted' if e is None else type(e).__name__
+                             for _, e in got])
+        emit('fuzz_gray_mutations', stream='gray_2048x1080_rev',
+             mutations=FUZZ_GRAY_MUTATIONS, seed=1,
+             strict_resilient=outcomes, equal_to_cpu=True)
+        n_ok = n_rej = 0
+        t0 = time.perf_counter()
+        for it, (planes, kw) in enumerate(sets):
+            if FE.check_params(planes, kw, dev, f'set {it} of seed 0') \
+                    is None:
+                n_rej += 1
+            else:
+                n_ok += 1
+        emit('fuzz_encode', sets=FUZZ_PARAM_SETS, seed=0, encoded=n_ok,
+             rejected=n_rej, equal_to_cpu=True,
+             wall_s=time.perf_counter() - t0)
+        img_rng = np.random.RandomState(4)
+        for shape, bs in FUZZ_BLOCK_ENCODES:
+            img = img_rng.randint(0, 256, shape).astype(np.int32)
+            kw = dict(reversible=True, block_size=bs)
+            got = encode_gpu(img, device=dev, **kw)
+            if got != encode_gpu(img, device='cpu', **kw):
+                raise AssertionError(f'{shape} with codeblocks {bs} encodes '
+                                     f'unlike the CPU encode')
+            back = decode_gpu(got, device=dev)
+            if len(back) != 1 or not np.array_equal(back[0], img):
+                raise AssertionError(f'{shape} with codeblocks {bs} does '
+                                     f'not decode back to the image')
+            emit('fuzz_block_encode', shape=list(shape), block_size=list(bs),
+                 bytes=len(got), equal_to_cpu=True, decodes_to_source=True)
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev)
+        launches = launch_counts(K, R, E)
+        for proc, label in children:
+            st = fuzz_child_stats(*proc, label)
+            n = st['ok'] + st['valueerror'] + st['eof']
+            if n != FUZZ_MUTATIONS:
+                raise AssertionError(f'{label}: {n} of {FUZZ_MUTATIONS} '
+                                     f'mutations counted')
+            if st['peak_bytes'] > 1.25 * st['peak_bytes_at_25']:
+                raise AssertionError(
+                    f'{label}: the card\'s peak memory grew from '
+                    f'{st["peak_bytes_at_25"]} bytes after 25 streams to '
+                    f'{st["peak_bytes"]}')
+            if st['allocated_bytes'] > st['allocated_bytes_at_25']:
+                raise AssertionError(
+                    f'{label}: the memory held between streams grew from '
+                    f'{st["allocated_bytes_at_25"]} bytes after 25 streams '
+                    f'to {st["allocated_bytes"]}')
+            for k, v in st['launches'].items():
+                if k in launches:
+                    launches[k] += v
+            emit('fuzz_mutations', mode=label, seed=0, **st,
+                 peak_growth=st['peak_bytes'] / st['peak_bytes_at_25'])
+    finally:
+        for (proc, log), _ in children:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if not log.closed:
+                log.close()
+    for k in ('ht_cleanup_decode_dense', 'ht_cleanup_decode_raw',
+              'ht_cleanup_encode', 'ht_refine_decode_dense',
+              'ht_refine_decode_raw'):
+        if launches[k] == 0:
+            raise AssertionError(f'{k} was not launched in the fuzz phase')
+    for k, v in launches.items():
+        kernels[k]['launches'] += v
+    emit('fuzz_path_launches', **launches)
+    emit('fuzz_phase_s', seconds=time.perf_counter() - t_phase,
+         peak_device_mb=peak / 2**20, card=card_id)
+
+
+def entry_phase(dev, kernels, K, E, card_id):
+    """openjph_tpu_torch.entry on the card (ROADMAP 14): entry()'s runner
+    (K1, the dense layout) decodes the sample to its image, and
+    dryrun_multichip(1) runs its five stages (K1, the sharded DWT, K2,
+    K3, the two-process fan-out).  Counted in this process."""
+    import numpy as np
+    from openjph_tpu_torch import entry as EN
+    t0 = time.perf_counter()
+    K.reset_launches()
+    E.reset_launches()
+    runner, args = EN.entry()
+    errs, outs = runner(*args)
+    _, img = EN._sample_stream()
+    if bool(errs.any()) or len(outs) != 1 or not np.array_equal(
+            outs[0][0][0].cpu().numpy().astype(np.int32), img):
+        raise AssertionError('entry() does not decode to the sample image')
+    emit('entry', shape=list(outs[0][0].shape), equal_to_image=True)
+    t1 = time.perf_counter()
+    EN.dryrun_multichip(1)
+    emit('dryrun_multichip', devices=1, stages=5, passed=True,
+         wall_s=time.perf_counter() - t1)
+    launches = launch_counts(K, E)
+    for k in ('ht_cleanup_decode_dense', 'ht_cleanup_decode_raw',
+              'ht_cleanup_encode'):
+        if launches[k] == 0:
+            raise AssertionError(f'{k} was not launched in the entry phase')
+    for k, v in launches.items():
+        kernels[k]['launches'] += v
+    emit('entry_path_launches', **launches)
+    emit('entry_phase_s', seconds=time.perf_counter() - t0, card=card_id)
+
+
 def main() -> int:
     import argparse
     import numpy as np
@@ -3954,6 +4154,11 @@ def main() -> int:
     parallel_phase(card_id)
     multihost_phase(kernels, card_id)
     emit('scale_out_phase_s', seconds=time.perf_counter() - t0)
+
+    # 15. the fuzz harnesses over the OpenJPH corpus and mutated streams,
+    # and the entry point, each counted
+    fuzz_phase(gray, dev, kernels, K, E, R, card_id)
+    entry_phase(dev, kernels, K, E, card_id)
 
     print(json.dumps({'kernels': list(kernels.values())}), flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -199,6 +199,9 @@ def test_importing_the_port_loads_no_jax():
             'import openjph_tpu_torch.parallel.tiles\n'
             'import openjph_tpu_torch.parallel.dwt_sharded\n'
             'import openjph_tpu_torch.parallel.multihost\n'
+            'import openjph_tpu_torch.fuzzing.fuzz_decode\n'
+            'import openjph_tpu_torch.fuzzing.fuzz_encode\n'
+            'import openjph_tpu_torch.entry\n'
             'from openjph_tpu_torch.parallel import (MosaicDecoder,\n'
             '    MosaicEncoder)\n'
             'from openjph_tpu_torch import (VideoDecoder, VideoEncoder,\n'
