@@ -11,7 +11,9 @@ and the multi-pass decode: the refinement-pass kernel against its plain
 version on every lane of the two multi-pass test streams (as coded and
 with its gates forced) and of seeded synthetic batches (seven codeblock
 shapes, odd ones among them), also on lanes enough that a block's SigProp
-chains share one warp, split by its gates, the cleanup and
+chains share one warp, split by its gates, on the committed lanes whose
+cleanup makes a padding sample significant (32 and 64 bits, against the
+JAX package's fused refine stored beside them), the cleanup and
 refinement kernels together against the C++ scalar codeblock decoder,
 and both streams decoded end to end against the port's CPU decode (both
 runner modes, an 8-frame burst); the multi-pass encode (the
@@ -70,7 +72,9 @@ processes of their own with the card's peak memory, 4 mutations of the
 gray frame, 48 random encode parameter sets and codeblocks of 1024x4,
 4x1024 and 4x4, each against the port's CPU path; and the entry
 point (the `entry` phase): entry()'s runner against the sample image and
-dryrun_multichip(1).  It
+dryrun_multichip(1); and the upload A/B tool (the `ab_upload` phase):
+VideoDecoder's staged, unstaged and synchronous uploads in turns, 3
+rounds of 6 bursts of 8 frames, MP/s a round.  It
 times each stage (device stages with CUDA events, host stages with the
 host clock), and prints one JSON line per result.
 
@@ -115,6 +119,10 @@ RGB = os.path.join(DATA, 'rgb_2048x1080_97.j2c')
 TESTDATA = os.path.join(ROOT, 'openjph_tpu_torch', 'testdata')
 GRAY3 = os.path.join(TESTDATA, 'gray_2048x1080_rev_p3.j2c')
 CAUSAL2 = os.path.join(TESTDATA, 'gray_512x256_rev_p2_causal.j2c')
+# multi-pass codeblocks whose cleanup makes a padding sample significant,
+# with the JAX package's fused refine of each
+# (tests/test_torch_refine_padding.py)
+REFINE_PADDING = os.path.join(TESTDATA, 'refine_padding_lanes.npz')
 # the host decoder's resilient decode of three cuts of CAUSAL2
 CAUSAL2_REF = os.path.join(TESTDATA,
                            'gray_512x256_rev_p2_causal_resilient.npz')
@@ -2817,17 +2825,19 @@ def wide_encode_row(planes, dev, name: str, card_id: str, **kwargs):
     return row
 
 
-def wide_codeblock_batches(dev):
-    """The committed multi-pass 64-bit codeblocks, one batch of lanes a
-    shape (each codeblock repeated over 64 lanes, as k4_synthetic packs
-    its batches): per shape (width, height, codeblocks, raw cleanup
-    arguments, raw refinement arguments, dense cleanup arguments, dense
-    refinement arguments), every tensor on the card."""
+def codeblock_batches(path: str, dev, bits: int):
+    """The committed multi-pass codeblocks of ``path`` (the layout of
+    testdata/wide_multipass_codeblocks.npz), one batch of lanes a shape
+    (each codeblock repeated over 64 lanes, as k4_synthetic packs its
+    batches), to decode at ``bits``: per shape (width, height,
+    codeblocks, raw cleanup arguments, raw refinement arguments, dense
+    cleanup arguments, dense refinement arguments), every tensor on the
+    card."""
     import numpy as np
     import torch
     from openjph_tpu_torch.gpu.bitprep import prep_cleanup_streams
     from openjph_tpu_torch.gpu.block_refine import prep_refine_streams
-    z = np.load(WIDE_CODEBLOCKS)
+    z = np.load(path)
     by_shape = {}
     for i in range(len(z['w'])):
         w, h = int(z['w'][i]), int(z['h'][i])
@@ -2861,7 +2871,7 @@ def wide_codeblock_batches(dev):
         lc = np.array([c['len1'] for c in lanes])
         sc = np.array([(c['data'][c['len1'] - 1] << 4)
                        + (c['data'][c['len1'] - 2] & 0xF) for c in lanes])
-        p = t([62 - c['mm'] for c in lanes])
+        p = t([(62 if bits == 64 else 30) - c['mm'] for c in lanes])
         qhl = t([(h + 1) // 2] * 64)
         gates = (p, t([c['npasses'] for c in lanes]), t([h] * 64),
                  t([c['causal'] for c in lanes]), w, h)
@@ -2870,7 +2880,7 @@ def wide_codeblock_batches(dev):
                                        (sc.max() * 8 + 31) // 32 + 8,
                                        ((lc - sc).max() * 8 + 31) // 32 + 8))
         raw_c = (blob_t, t(base), t(lc - sc), t(sc - 1), p, w, h, qhl,
-                 words, 64)
+                 words, bits)
         raw_r = (blob_t, t(base + lc - 1), t([c['len2'] for c in lanes])) \
             + gates
         datas = [c['data'] for c in lanes]
@@ -2883,26 +2893,29 @@ def wide_codeblock_batches(dev):
                 .to(dev)
 
         dense_c = (words_t(st['mel']), words_t(st['vlc']), words_t(st['ms']),
-                   p, w, h, qhl, 64)
+                   p, w, h, qhl, bits)
         dense_r = (words_t(rs['spp']), words_t(rs['mrp'])) + gates
         out.append((w, h, lanes, raw_c, raw_r, dense_c, dense_r))
     return out
 
 
-def wide_k4_codeblocks(dev, card_id: str):
-    """K2-64 then K4-64 (and K1-64 then K4-64) on the committed multi-pass
-    codeblocks: each against its plain version, the result against the
-    codeblocks' stored samples (the JAX package's decoder) and the C++
-    scalar decoder."""
+def k4_codeblocks(path: str, dev, bits: int) -> int:
+    """K2 then K4 and K1 then K4, at ``bits``, on the stored multi-pass
+    codeblocks of ``path`` (codeblock_batches): each kernel against its
+    plain version, the result against the codeblocks' stored samples
+    (the JAX package's decode; at 64 bits a codeblock of fewer than 30
+    missing MSBs shifted down by 32, as _Runner.mask reads it) and the
+    C++ scalar decoder.  Returns the lanes held a mode."""
     import numpy as np
     import torch
     from openjph_tpu_torch import native
     from openjph_tpu_torch.gpu import block_decode as plain
     from openjph_tpu_torch.gpu import block_decode_cuda as K
     from openjph_tpu_torch.gpu import block_refine_cuda as R
+    name = os.path.basename(path)
     lanes_total = 0
     for w, h, lanes, raw_c, raw_r, dense_c, dense_r in \
-            wide_codeblock_batches(dev):
+            codeblock_batches(path, dev, bits):
         for raw in (True, False):
             kern_c = K.decode_cleanup_raw if raw else K.decode_cleanup
             ref_c = K.decode_cleanup_raw_plain if raw \
@@ -2914,28 +2927,63 @@ def wide_k4_codeblocks(dev, card_id: str):
             dp, ep_ = ref_c(*ca)
             torch.cuda.synchronize()
             if not (torch.equal(d, dp) and torch.equal(e, ep_)) or e.any():
-                raise AssertionError(f'64-bit cleanup on the {w}x{h} '
-                                     f'codeblocks differs (raw={raw})')
+                raise AssertionError(f'{bits}-bit cleanup on the {w}x{h} '
+                                     f'codeblocks of {name} differs '
+                                     f'(raw={raw})')
             got = kern_r(d.clone(), *ra)
             want = ref_r(d, *ra)
             torch.cuda.synchronize()
             if not torch.equal(got, want):
-                raise AssertionError(f'64-bit refinement on the {w}x{h} '
-                                     f'codeblocks differs from the plain '
-                                     f'version (raw={raw})')
-            got = got.cpu().numpy().view(np.uint64)
+                raise AssertionError(f'{bits}-bit refinement on the {w}x{h} '
+                                     f'codeblocks of {name} differs from '
+                                     f'the plain version (raw={raw})')
+            got = got.cpu().numpy().view(np.uint64 if bits == 64
+                                         else np.uint32)
             for i, c in enumerate(lanes):
                 scalar = native.decode_codeblock(
                     c['data'], c['mm'], c['npasses'], c['len1'],
                     c['len2'], w, h, bool(c['causal']))
-                if not (np.array_equal(got[i], c['samples'])
-                        and np.array_equal(got[i], scalar)):
-                    raise AssertionError(f'64-bit refinement: lane {i} of '
-                                         f'the {w}x{h} codeblocks differs '
-                                         f'from the stored samples')
+                mine = got[i]
+                if bits == 64 and c['samples'].dtype == np.uint32:
+                    mine = (mine >> np.uint64(32)).astype(np.uint32)
+                if not (np.array_equal(mine, c['samples'])
+                        and np.array_equal(scalar, c['samples'])):
+                    raise AssertionError(f'{bits}-bit refinement: lane {i} '
+                                         f'of the {w}x{h} codeblocks of '
+                                         f'{name} differs from the stored '
+                                         f'samples (raw={raw})')
         lanes_total += len(lanes)
-    emit('wide_k4_codeblocks', lanes=lanes_total, bit_exact=True,
+    return lanes_total
+
+
+def wide_k4_codeblocks(dev, card_id: str):
+    """K2-64 then K4-64 (and K1-64 then K4-64) on the committed multi-pass
+    codeblocks: each against its plain version, the result against the
+    codeblocks' stored samples (the JAX package's decoder) and the C++
+    scalar decoder."""
+    lanes = k4_codeblocks(WIDE_CODEBLOCKS, dev, 64)
+    emit('wide_k4_codeblocks', lanes=lanes, bit_exact=True,
          equal_to_stored_and_scalar=True, card=card_id)
+
+
+def k4_padding_lanes(dev, card_id: str):
+    """K4 raw and dense, 32- and 64-bit, after the card's own K2 / K1,
+    on the committed lanes whose cleanup makes a padding sample
+    significant (testdata/refine_padding_lanes.npz: 7 and 5 wide, 15 and
+    13 tall; 2 and 3 passes; causal or not): each launch bit-exact with
+    its plain version, with the JAX package's decode_cleanup_refine
+    stored beside the lanes, and with the port's C++ scalar decoder."""
+    import numpy as np
+    t0 = time.perf_counter()
+    with np.load(REFINE_PADDING) as z:
+        shapes = sorted({(int(w), int(h)) for w, h in zip(z['w'], z['h'])})
+        codeblocks = len(z['w'])
+    lanes = {bits: k4_codeblocks(REFINE_PADDING, dev, bits)
+             for bits in (32, 64)}
+    emit('k4_padding_lanes', codeblocks=codeblocks, shapes=shapes,
+         lanes_per_mode=lanes, modes=['raw', 'dense'], bit_exact=True,
+         equal_to_jax_refine_and_scalar=True,
+         seconds=time.perf_counter() - t0, card=card_id)
 
 
 def wide_refine_rows(data: bytes, ref, dev, card_id: str) -> dict:
@@ -3843,6 +3891,40 @@ def entry_phase(dev, kernels, K, E, card_id):
     emit('entry_phase_s', seconds=time.perf_counter() - t0, card=card_id)
 
 
+def ab_upload_phase(dev, kernels, K, E, card_id):
+    """The upload A/B tool (openjph_tpu_torch.tools.ab_upload) at full
+    size: 2 sets of 8 gray 2048x1080 frames encoded on the card (K3),
+    one warm-up, then 3 rounds of the staged, unstaged and synchronous
+    strategies in turns, 6 bursts each through VideoDecoder (K2); a line
+    of MP/s a round, every strategy's last burst equal to its frames.
+    Counted in this process."""
+    from openjph_tpu_torch.tools import ab_upload
+    t0 = time.perf_counter()
+    K.reset_launches()
+    E.reset_launches()
+    res = ab_upload.main(device=dev, log=lambda m: print(
+        'ab_upload:', m, file=sys.stderr, flush=True))
+    if not res['last_equal']:
+        raise AssertionError('ab_upload: a strategy\'s last burst differs '
+                             'from the frames it was coded from')
+    for r, row in enumerate(res['rounds']):
+        emit('ab_upload_round', round=r, frames_per_burst=ab_upload.NFRAMES,
+             bursts=ab_upload.NBURST, mp_per_s=row, card=card_id)
+    launches = launch_counts(K, E)
+    for k in ('ht_cleanup_decode_raw', 'ht_cleanup_encode'):
+        if launches[k] == 0:
+            raise AssertionError(f'{k} was not launched in the ab_upload '
+                                 f'phase')
+    for k, v in launches.items():
+        kernels[k]['launches'] += v
+    emit('ab_upload', rounds=len(res['rounds']), strategies=list(
+        ab_upload.STRATEGIES), last_bursts_equal=True,
+         warmup_s=res['warmup_s'], encode_s=res['encode_s'])
+    emit('ab_upload_path_launches', **launches)
+    emit('ab_upload_phase_s', seconds=time.perf_counter() - t0,
+         card=card_id)
+
+
 def main() -> int:
     import argparse
     import numpy as np
@@ -4044,6 +4126,9 @@ def main() -> int:
     k4_synthetic(dev, card_id, lanes=9 * 256, shapes=((64, 64), (62, 33),
                                                       (13, 7)),
                  seed=5, packed=True)
+    # ... and on lanes whose cleanup makes a padding sample significant
+    # (the fused semantics: significance from the samples inside the block)
+    k4_padding_lanes(dev, card_id)
 
     # references of the multi-pass streams: the port's own CPU decode
     # (plain versions of every stage); it launches no kernel
@@ -4159,6 +4244,9 @@ def main() -> int:
     # and the entry point, each counted
     fuzz_phase(gray, dev, kernels, K, E, R, card_id)
     entry_phase(dev, kernels, K, E, card_id)
+
+    # 16. the upload A/B tool: VideoDecoder's upload strategies in turns
+    ab_upload_phase(dev, kernels, K, E, card_id)
 
     print(json.dumps({'kernels': list(kernels.values())}), flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -5,7 +5,9 @@ The host layer (codestream syntax, Tier-2, planning, packing, byte
 stuffing) is a copy of the JAX package's; the device paths are torch
 ops plus hand-written CUDA kernels for the HT cleanup-pass decode and
 encode and for the refinement passes (SigProp / MagRef) of multi-pass
-codeblocks, which the decode takes; the encode is cleanup-only.
+codeblocks, both ways: the decode refines them, and the encode takes
+``ht_passes`` 2 and 3 through the cleanup encoder and the refinement-pass
+encoder.
 
 Decode takes damaged streams as the JAX package does: strict mode
 (the default) raises ValueError / EOFError, and ``resilient=True``

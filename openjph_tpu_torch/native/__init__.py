@@ -280,15 +280,36 @@ def decode_codeblock(coded_data, missing_msbs, num_passes, len1, len2,
     """C++ scalar HT block decode (Cleanup, SigProp and MagRef, one
     codeblock at a time); returns the sign-magnitude array (uint32 for
     <=30 bit planes, uint64 beyond).  It is the independent per-block
-    reference of the decode kernels, never on the decode path.  Raises
-    ValueError on a malformed codeblock."""
+    reference of the decode kernels, never on the decode path.  SigProp
+    and MagRef take the cleanup's significance from its samples inside
+    ``width`` x ``height``, as the fused decoders do.  Raises ValueError
+    on a malformed codeblock."""
+    qh = (height + 1) >> 1
+    out = np.zeros((qh * 2, width), np.uint64)
+    _decode_codeblock_into(out, coded_data, missing_msbs, num_passes, len1,
+                           len2, width, height, stripe_causal)
+    out = out[:height]
+    if missing_msbs < 30:
+        return out.astype(np.uint32)
+    return out
+
+
+def _decode_codeblock_into(out: np.ndarray, coded_data, missing_msbs,
+                           num_passes, len1, len2, width, height,
+                           stripe_causal=False) -> None:
+    """decode_codeblock into ``out``, a C-contiguous uint64 buffer that
+    starts with the decoder's [(height + 1) // 2 * 2, width] rows (the
+    last one the padding row of an odd height); raises ValueError on a
+    malformed codeblock."""
     lib = _load()
     from ..coding.tables import get_tables
     t = get_tables()
     data = np.ascontiguousarray(
         np.frombuffer(bytes(coded_data), np.uint8))
-    qh = (height + 1) >> 1
-    out = np.zeros((qh * 2, width), np.uint64)
+    if out.dtype != np.uint64 or not out.flags.c_contiguous or \
+            out.size < ((height + 1) >> 1) * 2 * width:
+        raise ValueError('out must be C-contiguous uint64 of at least '
+                         '(height + 1) // 2 * 2 * width elements')
     rc = lib.decode_codeblock(
         data.ctypes.data, int(missing_msbs), int(num_passes),
         int(len1), int(len2), int(width), int(height),
@@ -303,10 +324,6 @@ def decode_codeblock(coded_data, missing_msbs, num_passes, len1, len2,
     if rc < 0:
         code, msg = _DEC_ERRORS[rc]
         raise ValueError(f'ojph error 0x{code:08X}: {msg}')
-    out = out[:height]
-    if missing_msbs < 30:
-        return out.astype(np.uint32)
-    return out
 
 
 _ENC_TABLES = None

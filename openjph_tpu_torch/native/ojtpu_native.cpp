@@ -1300,6 +1300,10 @@ void pack_from_dense(int64_t n, const uint32_t* dense,
 // itself bit-exact with ojph_decode_codeblock32/64) — the host path
 // for >30-bit-plane codeblocks and per-block fallbacks, where the
 // Python scalar loop runs ~0.2 MP/s and this runs oracle-class.
+// One departure: SigProp and MagRef take the cleanup's significance
+// from the decoded samples inside the block, as the fused decoders do,
+// not from the quads' rho; the two differ only where a damaged segment
+// makes a padding sample significant.
 // Tables are passed in from Python (coding/data/vlc_tables.npz).
 // ---------------------------------------------------------------------------
 
@@ -1616,30 +1620,21 @@ int decode_codeblock(
 
   if (num_passes <= 1) return 0;
 
-  // ---- column-significance array (_sig_from_inf) ----
+  // ---- column-significance array ----
+  // The cleanup's significance inside the block (width x height), taken
+  // from the decoded samples as the fused decoders take it (sig_pack):
+  // a padding sample that a damaged or hand-made cleanup segment makes
+  // significant (column `width` of the last quad column, row `height` of
+  // the last quad row) is neither a SigProp neighbour nor refined by
+  // MagRef, so no pass reads a bit for it or writes outside the block.
   const int64_t n_sy = (height + 3) >> 2;
   const int64_t n_gx = (width + 3) >> 2;
   std::vector<uint32_t> sig((n_sy + 1) * (n_gx + 1), 0);
-  for (int64_t sy = 0; sy < n_sy; ++sy)
-    for (int64_t gx = 0; gx < n_gx; ++gx) {
-      uint32_t t = 0;
-      for (int half = 0; half < 2; ++half) {
-        const int64_t qy = sy * 2 + half;
-        if (qy >= qh) continue;
-        for (int qxo = 0; qxo < 2; ++qxo) {
-          const int64_t qx = gx * 2 + qxo;
-          if (qx >= qw) continue;
-          const uint32_t rho = (inf[qy * (qw + 3) + qx] >> 4) & 0xF;
-          for (int b = 0; b < 4; ++b)
-            if (rho & (1u << b)) {
-              const int colq = qxo * 2 + (b >> 1);
-              const int rowq = half * 2 + (b & 1);
-              t |= 1u << (colq * 4 + rowq);
-            }
-        }
-      }
-      sig[sy * (n_gx + 1) + gx] = t;
-    }
+  for (int64_t y = 0; y < height; ++y)
+    for (int64_t x = 0; x < width; ++x)
+      if (out[y * width + x])
+        sig[(y >> 2) * (n_gx + 1) + (x >> 2)] |=
+            1u << ((x & 3) * 4 + (y & 3));
 
   // ---- Significance Propagation Pass ----
   {

@@ -55,6 +55,37 @@ _WIDE_DECODE = ('>30 bit-plane streams take the host path; mosaic sharding '
 _NOT_FUSED_CHUNKED = ('stream not eligible for the fused encode path; '
                       'chunked ingest needs it')
 
+
+class _MemoPlans(dict):
+    """MosaicDecoder's per-tile plans (the JAX package's _MemoPlans):
+    tile ``ti``'s plan at its class's largest word buckets, under the
+    class's ``top`` key, built at first access and kept, so a caller that
+    changes a plan (as a cross-mosaic word-bucket unification does) keeps
+    its change.  ``values()`` builds every tile's.  The decode paths never
+    fill it: they plan each sub-batch afresh and drop the plans with it."""
+
+    def __init__(self, md: 'MosaicDecoder'):
+        super().__init__()
+        self._md = md
+
+    def __missing__(self, ti: int):
+        md = self._md
+        with md.dec.tiles.held((ti,)):
+            with trace.stage('decode.plan'):
+                plan = _build_plan(md.dec, (ti,))
+        gk = _geometry_key(plan.key)
+        top = next(c['top'] for c in md.classes
+                   if _geometry_key(c['top'].key) == gk)
+        plan = _merge_words([plan, top])[0]
+        self[ti] = plan
+        return plan
+
+    def values(self):
+        for ti in range(len(self._md.dec.tiles)):
+            self[ti]
+        return super().values()
+
+
 def _frames(T: int, ndev: int) -> int:
     """Frames of a sub-batch of T tiles: a _bucket size at least the
     mesh size, split evenly over it."""
@@ -82,7 +113,11 @@ class MosaicDecoder:
     ``classes`` lists the geometry classes: dicts with the class's
     ``tiles`` (tile indices) and ``top``, a plan at the largest word
     buckets of any member (every sub-batch of the class runs at them, in
-    refine mode if any member has refinement passes)."""
+    refine mode if any member has refinement passes); ``plan`` names the
+    same object, as in the JAX package's classes.  ``tile_plans[ti]`` is
+    tile ti's own plan under its class's key, built at first access and
+    kept (``tile_plans.values()`` builds them all); the decode paths never
+    fill it."""
 
     def __init__(self, data, mesh: Optional[Mesh] = None,
                  skip_res: int = 0, batch_tiles: int = 64,
@@ -117,6 +152,9 @@ class MosaicDecoder:
                 else:
                     cls['top'] = _merge_words([cls['top'], plan])[0]
                 cls['tiles'].append(ti)
+        for cls in self.classes:
+            cls['plan'] = cls['top']
+        self.tile_plans = _MemoPlans(self)
 
     def _run_classes(self):
         """Yield (tile indices, comps, errs, broken) per geometry-class

@@ -32,9 +32,11 @@ from openjph_tpu_torch.core.message import OjphError
 from openjph_tpu_torch.gpu.encode_pipeline import GpuEncoder
 from openjph_tpu_torch.parallel._testing import (flat_tile_3pass,
                                                  mosaic_fixture_sources)
+from openjph_tpu_torch.gpu.pipeline import _burst_runner, _pack, upload
 from openjph_tpu_torch.parallel import (MosaicDecoder, MosaicEncoder,
                                         decode_mosaic, encode_mosaic,
                                         make_mesh)
+from openjph_tpu_torch.parallel.tiles import _frames
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TESTDATA = os.path.join(REPO, 'openjph_tpu_torch', 'testdata')
@@ -392,6 +394,70 @@ def test_entry_points_need_a_card_unless_told():
         MosaicEncoder()
     with pytest.raises(RuntimeError, match='CUDA'):
         MosaicDecoder(b'')
+
+
+TILE_PLAN_STREAMS = ['mosaic_gray_128x128_rev_t64',
+                     'mosaic_gray_128x128_rev_p3_t64']
+
+
+@pytest.mark.parametrize('name', TILE_PLAN_STREAMS)
+def test_tile_plans_memoise_and_decode_as_decode(name):
+    """tile_plans: filled by no decode path, built at first access and
+    kept, every tile's by values(), each under its class's key (``plan``
+    names the class's ``top``); the tiles packed from them and run on the
+    class's runner equal decode()."""
+    md = MosaicDecoder(_fixture(name), _mesh())
+    want = md.decode()
+    assert len(md.tile_plans) == 0
+    p0 = md.tile_plans[0]
+    assert md.tile_plans[0] is p0 and len(md.tile_plans) == 1
+    assert len(md.tile_plans.values()) == len(md.dec.tile_rects) == 4
+    assert md.tile_plans[0] is p0
+    tile_planes = {}
+    for cls in md.classes:
+        assert cls['plan'] is cls['top']
+        tiles = cls['tiles']
+        plans = [md.tile_plans[ti] for ti in tiles]
+        assert all(p.key == cls['top'].key for p in plans)
+        F = _frames(len(tiles), 1)
+        args = _pack([(md.dec, p) for p in plans]
+                     + [(md.dec, plans[0])] * (F - len(tiles)), md.raw)
+        errs, outs = _burst_runner(cls['top'], F, 'cpu', md.raw)(
+            *upload(args, 'cpu'))
+        assert not errs.any()
+        for i, ti in enumerate(tiles):
+            tile_planes[ti] = [c[i].numpy() for c in outs[0]]
+    got = md.dec._assemble(tile_planes)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize('name', TILE_PLAN_STREAMS)
+def test_tile_plans_hold_the_jax_plans(name):
+    """Against the JAX MosaicDecoder's tile_plans on the same stream: the
+    same classes and tile order, and per tile the same groups (id, width,
+    height, codeblocks), placements, bands and per-lane arrays (byte
+    offset, lcup, scup, p, quad-row limit, passes, refinement length,
+    true height, causal flag).  Not compared, as the port's planner
+    differs there by design: the groups' lane padding (the port pads to 8
+    lanes) and word buckets (the port's have no stuffing ceiling), and
+    the tile tuples, where the port records more."""
+    from openjph_tpu.parallel.mesh import make_mesh as jmesh
+    s = _fixture(name)
+    jmd = JaxMosaicDecoder(s, jmesh(1))
+    md = MosaicDecoder(s, _mesh())
+    assert [c['tiles'] for c in md.classes] == \
+        [c['tiles'] for c in jmd.classes]
+    for ti in range(len(md.dec.tile_rects)):
+        a, b = jmd.tile_plans[ti], md.tile_plans[ti]
+        assert [(g.gid, g.w, g.h, len(g.members)) for g in a.groups] == \
+            [(g.gid, g.w, g.h, len(g.members)) for g in b.groups]
+        assert a.placements == b.placements and a.bands == b.bands
+        assert a.has_refine == b.has_refine == ('_p3_' in name)
+        assert len(a.lanes) == len(b.lanes) == 9
+        for x, y in zip(a.lanes, b.lanes):
+            np.testing.assert_array_equal(x, y)
 
 
 @pytest.mark.parametrize('name', sorted(mosaic_fixture_sources()))

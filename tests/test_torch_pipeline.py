@@ -174,6 +174,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert {os.path.join('openjph_tpu_torch', 'gpu', f + '.py')
             for f in ('block_refine_encode', 'block_refine_encode_cuda')} \
         <= names
+    # ... and the measurement tools
+    assert os.path.join('openjph_tpu_torch', 'tools', 'ab_upload.py') \
+        in names
 
 
 def test_packaging_lists_every_port_package():
@@ -197,6 +200,7 @@ def test_importing_the_port_loads_no_jax():
             'import openjph_tpu_torch.gpu.block_refine_encode_cuda\n'
             'import openjph_tpu_torch.gpu.staging\n'
             'import openjph_tpu_torch.parallel.tiles\n'
+            'import openjph_tpu_torch.tools.ab_upload\n'
             'import openjph_tpu_torch.parallel.dwt_sharded\n'
             'import openjph_tpu_torch.parallel.multihost\n'
             'import openjph_tpu_torch.fuzzing.fuzz_decode\n'
