@@ -1,0 +1,7 @@
+"""decode.dispatch_ms: the port's stage `decode.dispatch` (host clock, on the thread that
+runs it) in milliseconds a frame over the traced window."""
+from gpubench.harness.readers import stage_ms_per_frame
+
+
+def read(rec, metric):
+    return stage_ms_per_frame(rec, 'decode.dispatch')

@@ -1,0 +1,7 @@
+"""encode.segment_pack_ms: the port's stage `encode.segment_pack` (host clock, on the thread that
+runs it) in milliseconds a frame over the traced window."""
+from gpubench.harness.readers import stage_ms_per_frame
+
+
+def read(rec, metric):
+    return stage_ms_per_frame(rec, 'encode.segment_pack')
