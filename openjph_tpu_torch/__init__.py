@@ -24,7 +24,11 @@ device dispatch each, with host preparation, uploads and fetches on
 worker threads beside the card's work.
 
 ``trace`` times the pipelines' stages under the JAX package's stage
-names and profiles the card (``trace.torch_trace``); ``apps`` holds the
+names, with each stage's parent and self time, follows each video
+decode burst from submit to collect (its waits, its dispatch's upload,
+Tier-1 and rest of graph, the runner and staging misses, and which
+stages the slowest 5% of bursts spent), records the collector's pauses,
+and profiles the card (``trace.torch_trace``); ``apps`` holds the
 command-line coders (``python -m openjph_tpu_torch.apps.compress``,
 ``.expand``, ``.stream_expand``), which run on the card.
 

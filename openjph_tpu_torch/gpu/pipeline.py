@@ -533,8 +533,11 @@ class _Runner:
         self.tl = tl
 
     def __call__(self, *args):
-        decs, errs = self.tier1(*args)
-        return torch.cat(errs), self.rest(decs)
+        with trace.stage('decode.dispatch.tier1'):
+            decs, errs = self.tier1(*args)
+            errs = torch.cat(errs)
+        with trace.stage('decode.dispatch.rest'):
+            return errs, self.rest(decs)
 
     def tier1(self, *args):
         src, views = self.views(*args)
@@ -1277,7 +1280,13 @@ class VideoDecoder:
     flags).  ``stage_uploads=False`` uploads from pageable memory on the
     decoder's stream instead of through pinned staging buffers on a
     side stream.  Errors inside a worker surface at ``collect`` /
-    ``collect_on_device``."""
+    ``collect_on_device``.
+
+    With tracing enabled each burst is a ``decode.burst`` span from its
+    submit to its collect, and its stages count under it: the prep
+    worker's queue wait, host prep, dispatch (upload, Tier-1 and the
+    rest of graph's launches), the caller's collect wait and error
+    checks (PERF.md section 3)."""
 
     def __init__(self, skip_res: int = 0, to_device: bool = False,
                  stage_uploads: bool = True, resilient: bool = False,
@@ -1302,42 +1311,47 @@ class VideoDecoder:
     def submit(self, streams: List[bytes]) -> None:
         """Enqueue a burst; parse and plan errors surface at its
         collect."""
-        self._inflight.append(self._prep_pool.submit(self._prep,
-                                                     list(streams)))
+        burst = trace.open_burst('decode.burst')
+        self._inflight.append((self._prep_pool.submit(
+            self._prep, list(streams), burst), burst))
 
     @torch.inference_mode()
-    def _prep(self, streams):
-        with trace.stage('decode.host_prep'):
-            decs = _decoders(streams, self.device, self.raw, self.resilient,
-                             self.skip_res)
-            plans = _burst_plans(decs)
-            if plans is not None:
-                # int32 views of the buffers, as upload() makes them
-                args = tuple(np.ascontiguousarray(a).view(np.int32)
-                             for a in _pack(list(zip(decs, plans)),
-                                            self.raw))
-        if plans is None:
-            self.fallback_bursts += 1
-            return decs, None, [d.decode() for d in decs]
-        self.fused_bursts += 1
-        runner = _burst_runner(plans[0], len(decs), self.device, self.raw)
-        with trace.stage('decode.dispatch'):
-            run = self._dispatch(runner, args)
+    def _prep(self, streams, burst=None):
+        trace.since(burst, 'decode.queue_wait')
+        with trace.burst(burst):
+            with trace.stage('decode.host_prep'):
+                decs = _decoders(streams, self.device, self.raw,
+                                 self.resilient, self.skip_res)
+                plans = _burst_plans(decs)
+                if plans is not None:
+                    # int32 views of the buffers, as upload() makes them
+                    args = tuple(np.ascontiguousarray(a).view(np.int32)
+                                 for a in _pack(list(zip(decs, plans)),
+                                                self.raw))
+            if plans is None:
+                self.fallback_bursts += 1
+                return decs, None, [d.decode() for d in decs]
+            self.fused_bursts += 1
+            runner = _burst_runner(plans[0], len(decs), self.device,
+                                   self.raw)
+            with trace.stage('decode.dispatch'):
+                run = self._dispatch(runner, args)
         broken = sum(p.broken for p in plans)
         if self.to_device:
             return decs, broken, run
-        return decs, broken, self._fetch_pool.submit(self._fetch, run)
+        return decs, broken, self._fetch_pool.submit(self._fetch, run, burst)
 
     def _dispatch(self, runner: _Runner, args):
         """Upload and enqueue the runner on the decoder's stream: (the
         count of flagged lanes, the outputs, the event after them; all on
         the device, and not waited for)."""
         with torch.cuda.stream(self._stream):
-            if self.stage_uploads:
-                dargs = self._stager.upload((runner.plan.key, runner.F),
-                                            args, self._stream)
-            else:
-                dargs = upload(args, self.device)
+            with trace.stage('decode.dispatch.upload'):
+                if self.stage_uploads:
+                    dargs = self._stager.upload(
+                        (runner.plan.key, runner.F), args, self._stream)
+                else:
+                    dargs = upload(args, self.device)
             errs, outs = runner(*dargs)
             nerr = errs.sum()
             done = None
@@ -1347,12 +1361,13 @@ class VideoDecoder:
         return nerr, outs, done
 
     @torch.inference_mode()
-    def _fetch(self, run):
+    def _fetch(self, run, burst=None):
         """(flagged lanes, per tile and component the [F, h, w] host
         array) of a dispatched burst."""
         nerr, outs, done = run
-        host = self._stager.fetch([nerr] + [c for t in outs for c in t],
-                                  after=done)
+        with trace.burst(burst):
+            host = self._stager.fetch([nerr] + [c for t in outs for c in t],
+                                      after=done)
         at = 1
         planes = []
         for t in outs:
@@ -1362,18 +1377,24 @@ class VideoDecoder:
 
     def collect(self) -> List[List[np.ndarray]]:
         """Block for and return the oldest burst's frames."""
-        decs, broken, fut = self._inflight.pop(0).result()
-        if broken is None:  # decoded frame by frame
-            self.zeroed = tuple(sum(z) for z in zip(*(d.zeroed
-                                                      for d in decs)))
-            return fut
-        with trace.stage('decode.fetch'):
-            nerr, outs = (self._fetch(fut) if self.to_device
-                          else fut.result())
-        self.zeroed = (broken, nerr)
-        _zeroed_blocks(broken, nerr, self.resilient)
-        with trace.stage('decode.assemble'):
-            return _assemble_burst(decs, outs)
+        fut, burst = self._inflight.pop(0)
+        with trace.burst(burst):
+            with trace.stage('decode.collect_wait'):
+                decs, broken, fut = fut.result()
+            if broken is None:  # decoded frame by frame
+                self.zeroed = tuple(sum(z) for z in zip(*(d.zeroed
+                                                          for d in decs)))
+                trace.close_burst(burst)
+                return fut
+            with trace.stage('decode.fetch'):
+                nerr, outs = (self._fetch(fut) if self.to_device
+                              else fut.result())
+            self.zeroed = (broken, nerr)
+            _zeroed_blocks(broken, nerr, self.resilient)
+            with trace.stage('decode.assemble'):
+                frames = _assemble_burst(decs, outs)
+        trace.close_burst(burst)
+        return frames
 
     def collect_on_device(self):
         """The oldest burst's frames left on the device (needs
@@ -1384,31 +1405,36 @@ class VideoDecoder:
         zero blocks here."""
         if not self.to_device:
             raise ValueError('collect_on_device needs to_device=True')
-        decs, broken, run = self._inflight.pop(0).result()
-        if broken is None:
-            raise ValueError('burst was decoded frame by frame (mixed '
-                             'geometry or burst size); use collect() for '
-                             'this burst')
-        nerr, outs, done = run
-        if done is not None:
-            cur = torch.cuda.current_stream(self.device)
-            cur.wait_event(done)
-            for t in outs:
-                for c in t:
-                    c.record_stream(cur)
-        self._pending_errs.append((nerr, broken, done))
-        # flags kept on the device cost no fetch here; the oldest is
-        # checked once more than 16 wait, so a caller that never drains
-        # still learns of a corrupt burst
-        while len(self._pending_errs) > 16:
-            self._check(self._pending_errs.pop(0))
+        fut, burst = self._inflight.pop(0)
+        with trace.burst(burst):
+            with trace.stage('decode.collect_wait'):
+                decs, broken, run = fut.result()
+            if broken is None:
+                raise ValueError('burst was decoded frame by frame (mixed '
+                                 'geometry or burst size); use collect() '
+                                 'for this burst')
+            nerr, outs, done = run
+            if done is not None:
+                cur = torch.cuda.current_stream(self.device)
+                cur.wait_event(done)
+                for t in outs:
+                    for c in t:
+                        c.record_stream(cur)
+            self._pending_errs.append((nerr, broken, done))
+            # flags kept on the device cost no fetch here; the oldest is
+            # checked once more than 16 wait, so a caller that never
+            # drains still learns of a corrupt burst
+            while len(self._pending_errs) > 16:
+                self._check(self._pending_errs.pop(0))
+        trace.close_burst(burst)
         return outs
 
     def _check(self, pending) -> None:
         nerr, broken, done = pending
-        if done is not None:
-            done.synchronize()
-        self.zeroed = (broken, int(nerr))
+        with trace.stage('decode.error_check'):
+            if done is not None:
+                done.synchronize()
+            self.zeroed = (broken, int(nerr))
         _zeroed_blocks(broken, self.zeroed[1], self.resilient)
 
     def drain_errors(self) -> None:

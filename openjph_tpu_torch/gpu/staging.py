@@ -11,7 +11,12 @@ the uploaded tensors waits on that copy's event.  Its fetches copy
 device tensors into pinned host memory on a fetch stream, after the
 event of the work that wrote them, and block on the copies' event.
 
-On the CPU an upload is a plain copy and a fetch a plain view.
+On the CPU an upload is a plain copy and a fetch a plain view.  On a
+CUDA device, inside a traced video decode burst (``trace.burst_stage``),
+the stages ``decode.upload.slot_wait`` (a host block on the copy that
+last read a slot) and ``decode.staging_alloc`` (a pinned buffer
+allocated: a ring that grew or was made anew, and every fetch's) time
+the two host costs that a steady stream should not pay.
 """
 from __future__ import annotations
 
@@ -20,6 +25,8 @@ from collections import OrderedDict
 
 import numpy as np
 import torch
+
+from ..utils import trace
 
 
 class _Slot:
@@ -83,7 +90,8 @@ class Stager:
         slot = self._acquire(key)
         try:
             if slot.event is not None:
-                slot.event.synchronize()
+                with trace.burst_stage('decode.upload.slot_wait'):
+                    slot.event.synchronize()
             outs = []
             with torch.cuda.stream(self.copy_stream):
                 for i, a in enumerate(arrays):
@@ -92,9 +100,10 @@ class Stager:
                     if i == len(slot.bufs):
                         slot.bufs.append(None)
                     if slot.bufs[i] is None or slot.bufs[i].numel() < n:
-                        slot.bufs[i] = torch.empty(max(n, 1),
-                                                   dtype=torch.uint8,
-                                                   pin_memory=True)
+                        with trace.burst_stage('decode.staging_alloc'):
+                            slot.bufs[i] = torch.empty(max(n, 1),
+                                                       dtype=torch.uint8,
+                                                       pin_memory=True)
                     host = slot.bufs[i][:n]
                     host.numpy()[:] = a.reshape(-1).view(np.uint8)
                     dev = torch.empty(n, dtype=torch.uint8,
@@ -126,7 +135,8 @@ class Stager:
             if after is not None:
                 s.wait_event(after)
             for t in tensors:
-                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                with trace.burst_stage('decode.staging_alloc'):
+                    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                 h.copy_(t, non_blocking=True)
                 t.record_stream(s)
                 hosts.append(h)

@@ -62,7 +62,7 @@ def sync_submit(vd: VideoDecoder, streams) -> None:
     future in the decoder's queue."""
     f = Future()
     f.set_result(vd._prep(list(streams)))
-    vd._inflight.append(f)
+    vd._inflight.append((f, None))
 
 
 def run_once(vd: VideoDecoder, stream_sets, mp: float, submit=None):

@@ -3,12 +3,17 @@ against the JAX package's (openjph_tpu.utils.trace): stages collected on
 the port's paths (on the CPU), no-op when disabled, nesting, safety
 across threads, message-level gating through the port's exported
 setters, and stage-name parity: the same runs in both packages, traced,
-give the port every stage name the JAX package gives."""
+give the port every stage name the JAX package gives.  Also the port's
+own additions: parents and self time, recorded durations, bursts and
+their tail attribution, collector pauses, the video decoder's burst
+stages, and what a traced-off submit / collect round costs."""
+import gc
 import io
 import json
 import os
 import sys
 import threading
+import time
 import warnings
 
 import numpy as np
@@ -173,7 +178,7 @@ def test_stage_name_parity_with_the_jax_package():
     assert port_names - jax_names <= {
         'decode.upload', 'encode.upload', 'encode.pack.fetch',
         'encode.pack.stuff', 'encode.pack.fill', 'encode.dev.aux_fetch',
-        'decode.fetch', 'decode.plan'}
+        'decode.fetch', 'decode.plan'} | BURST_STAGES | {'host.gc'}
 
 
 def test_torch_trace_writes_a_chrome_trace(tmp_path):
@@ -211,3 +216,240 @@ def test_torch_trace_shows_the_stages_of_every_thread(tmp_path):
     assert {'encode.host_prep', 'encode.device', 'encode.segment_pack',
             'encode.t2'} <= names
     assert len({e['tid'] for e in ranges}) >= 3
+
+
+# the video decoder's burst stages that a CPU run records (the staging
+# ring's slot wait and pinned allocations exist only on a CUDA device)
+BURST_STAGES = {'decode.queue_wait', 'decode.collect_wait',
+                'decode.dispatch.upload', 'decode.dispatch.tier1',
+                'decode.dispatch.rest', 'decode.burst'}
+DISPATCH_PARTS = ('decode.dispatch.upload', 'decode.dispatch.tier1',
+                  'decode.dispatch.rest')
+
+
+def test_self_time_and_parents():
+    trace.enable()
+    with trace.stage('outer'):
+        with trace.stage('inner'):
+            time.sleep(0.02)
+        with trace.stage('inner'):
+            pass
+    st = trace.get_stats()
+    assert st['inner']['parents'] == ['outer']
+    assert st['outer']['parents'] == []
+    assert st['inner']['self_seconds'] == pytest.approx(
+        st['inner']['seconds'])
+    assert st['outer']['self_seconds'] == pytest.approx(
+        st['outer']['seconds'] - st['inner']['seconds'])
+    assert st['outer']['self_seconds'] >= 0
+
+
+@pytest.mark.parametrize('to_device', [True, False])
+def test_video_decoder_records_every_burst_stage(to_device):
+    """Each burst's stages: every one of them recorded, the dispatch's
+    three parts inside it, self times within totals, and a runner built
+    on a cache miss counted under the burst that missed."""
+    # a geometry no other test builds a runner for
+    s = ot.encode_gpu(_img((24, 40 if to_device else 44), seed=3),
+                      device='cpu', reversible=True, num_decomps=2)
+    vd = ot.VideoDecoder(device='cpu', to_device=to_device)
+    trace.enable()
+    try:
+        for _ in range(3):
+            vd.submit([s] * 2)
+        while vd.depth:
+            (vd.collect_on_device if to_device else vd.collect)()
+        vd.drain_errors()
+    finally:
+        vd.close()
+    st = trace.get_stats()
+    want = BURST_STAGES | {'decode.host_prep', 'decode.dispatch',
+                           'decode.compile'}
+    want |= {'decode.error_check'} if to_device else {'decode.fetch'}
+    assert want <= set(st)
+    for name in BURST_STAGES - {'decode.compile'}:
+        assert st[name]['calls'] == 3, name
+    for name in DISPATCH_PARTS:
+        assert st[name]['parents'] == ['decode.dispatch']
+    assert sum(st[n]['seconds'] for n in DISPATCH_PARTS) <= \
+        st['decode.dispatch']['seconds']
+    for name, v in st.items():
+        assert 0 <= v['self_seconds'] <= v['seconds'] + 1e-9, name
+    rows = list(trace._bursts)
+    assert len(rows) == 3
+    assert [('decode.compile' in r) for _, r in rows] == [True, False, False]
+    for span, r in rows:
+        assert r['decode.burst'] == span
+        assert r['decode.dispatch'] <= span
+
+
+@pytest.mark.parametrize('enabled', [True, False])
+def test_collections_are_stages_while_enabled(enabled):
+    """A collection is a leaf stage of the thread's innermost stage, and
+    counts under a burst only when it ran inside one; a burst stage is
+    a stage inside a burst only."""
+    (trace.enable if enabled else trace.disable)()
+    b = trace.open_burst('decode.burst')
+    with trace.burst(b):
+        with trace.stage('s'), trace.burst_stage('in'):
+            gc.collect()
+    trace.close_burst(b)
+    with trace.burst_stage('out'):   # no burst: no stage
+        gc.collect()                 # and a collection outside every burst
+    st = trace.get_stats()
+    if enabled:
+        gcs = st['host.gc']
+        assert gcs['calls'] >= 2 and gcs['parents'] == ['in']
+        assert list(trace._bursts)[0][1]['host.gc'] == \
+            gcs['burst_seconds'] < gcs['seconds']
+        assert 'out' not in st and st['in']['parents'] == ['s']
+        assert st['in']['self_seconds'] <= \
+            st['in']['seconds'] - gcs['burst_seconds'] + 1e-9
+    else:
+        assert b is None and st == {}
+    trace.disable()
+    assert trace._on_gc not in gc.callbacks
+    gc.collect()
+    assert trace.get_stats() == st
+
+
+def test_a_collection_open_at_disable_or_reset_is_dropped(monkeypatch):
+    """A collection whose stop the hook missed (removed by a disable()
+    in between) or that straddles a reset() records nothing, and no
+    later stage counts as its child."""
+    clock = [0.0]
+    monkeypatch.setattr(trace.time, 'perf_counter', lambda: clock[0])
+    was = gc.isenabled()
+    gc.disable()   # only the collections this test makes
+    try:
+        trace.enable()
+        trace._on_gc('start', {})
+        clock[0] += 5.0
+        trace.disable()          # its stop never reaches the hook
+        trace.enable()
+        with trace.stage('after'):
+            clock[0] += 1.0
+        trace._on_gc('start', {})
+        clock[0] += 2.0
+        trace._on_gc('stop', {})
+        st = trace.get_stats()
+        trace._on_gc('start', {})
+        trace.reset()
+        trace._on_gc('stop', {})
+    finally:
+        if was:
+            gc.enable()
+    assert st['host.gc']['calls'] == 1
+    assert st['host.gc']['seconds'] == 2.0
+    assert st['after']['parents'] == []
+    assert st['after']['self_seconds'] == 1.0
+    assert trace.get_stats() == {}
+
+
+def _bursts(spans, fake_clock, per_burst=None):
+    """One burst a span (seconds on ``fake_clock``), each with stage
+    ``x`` of ``per_burst(i)`` seconds recorded under it."""
+    for i, span in enumerate(spans):
+        b = trace.open_burst('decode.burst')
+        with trace.burst(b):
+            trace.add('x', per_burst(i) if per_burst else 0.0)
+        fake_clock[0] += span
+        trace.close_burst(b)
+
+
+def test_tail_seconds_are_the_slowest_bursts(monkeypatch):
+    """Spans 1..100 s: the 95th percentile is 95.05, so the tail is the
+    bursts of 96..100 s; stage x took i s in the burst of i + 1 s."""
+    clock = [0.0]
+    monkeypatch.setattr(trace.time, 'perf_counter', lambda: clock[0])
+    trace.enable()
+    _bursts(list(range(1, 20)), clock)
+    assert 'tail_seconds' not in trace.get_stats()['decode.burst']
+    trace.reset()
+    order = np.random.RandomState(0).permutation(100)
+    _bursts([i + 1.0 for i in order], clock, lambda k: float(order[k]))
+    st = trace.get_stats()
+    assert st['decode.burst']['tail_seconds'] == pytest.approx(98.0)
+    assert st['x']['tail_seconds'] == pytest.approx(97.0)
+    assert st['decode.burst']['calls'] == st['x']['calls'] == 100
+    trace.reset()
+    assert trace.get_stats() == {} and len(trace._bursts) == 0
+    _bursts([1.0], clock)
+    assert 'tail_seconds' not in trace.get_stats()['decode.burst']
+
+
+def test_burst_table_is_bounded():
+    trace.enable()
+    for _ in range(trace.BURST_ROWS + 5):
+        trace.close_burst(trace.open_burst('decode.burst'))
+    assert len(trace._bursts) == trace.BURST_ROWS
+    assert trace.get_stats()['decode.burst']['calls'] == \
+        trace.BURST_ROWS + 5
+
+
+def test_bursts_from_many_threads_lose_no_update():
+    trace.enable()
+    n_threads, n_bursts = 16, 100
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def work():
+            for _ in range(n_bursts):
+                b = trace.open_burst('decode.burst')
+                with trace.burst(b):
+                    with trace.stage('t'):
+                        trace.add('w', 1.0)
+                trace.close_burst(b)
+        ts = [threading.Thread(target=work) for _ in range(n_threads)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in ts)
+    finally:
+        sys.setswitchinterval(old)
+    st = trace.get_stats()
+    n = n_threads * n_bursts
+    assert st['t']['calls'] == st['w']['calls'] == \
+        st['decode.burst']['calls'] == n
+    assert st['w']['seconds'] == n
+    assert [r['w'] for _, r in trace._bursts] == [1.0] * n
+    assert st['w']['tail_seconds'] == 1.0
+
+
+def test_traced_off_round_costs_one_branch_a_site(monkeypatch):
+    """With tracing off a submit / collect round of the video decoder
+    reads no clock, opens no range, records nothing and leaves no
+    collector hook."""
+    s = ot.encode_gpu(_img((16, 16)), device='cpu', num_decomps=1)
+    vd = ot.VideoDecoder(device='cpu', to_device=True)
+    try:
+        vd.submit([s])
+        vd.collect_on_device()   # warm: the runner is built
+        calls = []
+        real = time.perf_counter
+
+        def counting():
+            # the port's reads only: other threads of the process may
+            # keep their own time
+            caller = sys._getframe(1).f_globals.get('__name__', '')
+            if caller.startswith('openjph_tpu_torch'):
+                calls.append(caller)
+            return real()
+
+        def no_range(*a, **k):
+            raise AssertionError('a range opened with tracing off')
+
+        monkeypatch.setattr(time, 'perf_counter', counting)
+        monkeypatch.setattr(trace, 'record_function', no_range)
+        for _ in range(2):
+            vd.submit([s] * 2)
+        assert all(b is None for _, b in vd._inflight)
+        while vd.depth:
+            vd.collect_on_device()
+        vd.drain_errors()
+    finally:
+        vd.close()
+    assert calls == []
+    assert trace.get_stats() == {} and len(trace._bursts) == 0
+    assert trace._on_gc not in gc.callbacks
