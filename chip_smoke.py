@@ -74,7 +74,11 @@ gray frame, 48 random encode parameter sets and codeblocks of 1024x4,
 point (the `entry` phase): entry()'s runner against the sample image and
 dryrun_multichip(1); and the upload A/B tool (the `ab_upload` phase):
 VideoDecoder's staged, unstaged and synchronous uploads in turns, 3
-rounds of 6 bursts of 8 frames, MP/s a round.  It
+rounds of 6 bursts of 8 frames, MP/s a round; and the rest of graph
+replayed from its CUDA graph (the `rest_graph` phase) bit-equal to its
+eager launch on the benchmark's two geometries, the video decoder's five
+modes, two decoders sharing a graph and a mosaic pass, with the share
+replayed over sequences of distinct frames that do not loop.  It
 times each stage (device stages with CUDA events, host stages with the
 host clock), and prints one JSON line per result.
 
@@ -3925,6 +3929,297 @@ def ab_upload_phase(dev, kernels, K, E, card_id):
          card=card_id)
 
 
+# what the rest_graph phase takes of a benchmark configuration besides
+# its size, components and depth: the encode keywords it states
+CONFIG_ENCODE_KEYS = ('bit_depth', 'is_signed', 'reversible', 'num_decomps',
+                      'block_size', 'prog_order', 'color_transform',
+                      'base_delta', 'ht_passes', 'tile_size')
+
+
+def config_streams(name: str, dev, seed: int, n: int):
+    """``n`` distinct frames of the geometry of the benchmark
+    configuration ``name`` (gpubench/configs/<name>.json, read as data),
+    drifting sines plus film grain of sigma 6, further components offset
+    by sines of their own, each encoded on the card with the
+    configuration's encode keywords."""
+    import numpy as np
+    from openjph_tpu_torch.gpu.encode_pipeline import encode_gpu
+    with open(os.path.join(ROOT, 'gpubench', 'configs',
+                           name + '.json')) as f:
+        cfg = json.load(f)
+    kw = {k: tuple(cfg[k]) if isinstance(cfg[k], list) else cfg[k]
+          for k in CONFIG_ENCODE_KEYS if k in cfg}
+    h, w, nc = cfg['height'], cfg['width'], cfg['components']
+    top = (1 << cfg['bit_depth']) - 1
+    rng = np.random.default_rng(seed)
+    y = np.arange(h, dtype=np.float32)[:, None]
+    x = np.arange(w, dtype=np.float32)[None, :]
+    out = []
+    for k in range(n):
+        t = np.float32(k)
+        base = (127 + 60 * np.sin(x / 97.0 + t * 0.8)
+                * np.cos(y / 83.0 - t * 0.35)
+                + 40 * np.sin((x + y) / 211.0 + t))
+        planes = [np.clip(base + 20 * c * np.sin(x / 53.0 + c + t)
+                          + rng.standard_normal((h, w), dtype=np.float32)
+                          * 6, 0, top).astype(np.int32)
+                  for c in range(nc)]
+        out.append(encode_gpu(planes, device=dev, **kw))
+    return out
+
+
+def rest_graph_phase(dev, card_id):
+    """The rest of graph replayed from its CUDA graph, bit-equal to its
+    eager launches: each benchmark geometry (config_streams) in bursts
+    A, B, A, B through one VideoDecoder (B is A's frames reversed, or for
+    a one-frame burst the next frame, whose word buckets may differ: one
+    graph takes both: eager, capture, replay, replay); the video decoder's
+    five modes; two VideoDecoders on two streams and threads sharing one
+    graph with bursts in flight; a MosaicDecoder pass, three times.  Every
+    replayed output is held to a one-call runner's eager output of the
+    same burst.  Then, per geometry, a sequence of distinct frames that
+    does not loop (128 gray frames in bursts of 8, two in flight; 48 RGB
+    frames one at a time), from no graph and no runner, as the benchmark
+    cells decode them: the runner keys and graph keys it meets, the share
+    of dispatches that replayed a graph captured before them, and the
+    card's peak memory, allocated and reserved.  Prints each graph's
+    capture ms and pool bytes, the host's enqueue ms eager and replayed
+    and the kernels a profiler sees of each."""
+    import numpy as np
+    import torch
+    from openjph_tpu_torch import VideoDecoder, trace
+    from openjph_tpu_torch.gpu import pipeline as tp
+    from openjph_tpu_torch.parallel import MosaicDecoder
+    t_phase = time.perf_counter()
+    rdev = tp.resolve_device(dev)
+
+    def fresh():
+        """No runner and no graph, the card's caches emptied."""
+        with tp._RUNNERS._lock:
+            tp._RUNNERS._entries.clear()
+        with tp._REST_GRAPHS._lock:
+            entries = list(tp._REST_GRAPHS._entries.values())
+            tp._REST_GRAPHS._entries.clear()
+        for e in entries:
+            if e.graph is not None:
+                e.graph.close()
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    def plan(streams):
+        """The plan of a burst's runner."""
+        return tp._burst_plans(tp._decoders(streams, dev, True, False,
+                                            0))[0]
+
+    def prepared(streams, raw=True):
+        """A burst's plans and its arguments on the card."""
+        decs = tp._decoders(streams, dev, raw, False, 0)
+        plans = tp._burst_plans(decs)
+        return plans, tp.upload(tp._pack(list(zip(decs, plans)), raw), dev)
+
+    def eager(streams, raw=True):
+        """A one-call runner's (eager) outputs of one burst, on the card."""
+        plans, args = prepared(streams, raw)
+        runner = tp._make_runner(plans[0], len(streams), dev, raw)
+        if runner.graphs:
+            raise AssertionError('a one-call runner replays graphs')
+        return runner(*args)[1]
+
+    def equal(got, want, label):
+        host = not isinstance(got[0][0], torch.Tensor)
+        for t, (g_t, w_t) in enumerate(zip(got, want)):
+            for c, (g, w) in enumerate(zip(g_t, w_t)):
+                w = w.cpu().numpy() if host else w
+                ok = (np.array_equal(g, w) if host else
+                      g.dtype == w.dtype and torch.equal(g, w))
+                if not ok:
+                    raise AssertionError(f'{label}: tile {t} component {c} '
+                                         f'differs from the eager launch')
+
+    def frames_host(bursts_out):
+        # collect() gives per frame its components; as per tile [F, h, w]
+        return [[tuple(np.stack([f[c] for f in b]) for c in range(len(b[0])))]
+                for b in bursts_out]
+
+    def graphs():
+        with tp._REST_GRAPHS._lock:
+            return [e.graph for e in tp._REST_GRAPHS._entries.values()
+                    if e.graph is not None]
+
+    def calls(st):
+        return {k: st.get(f'decode.rest_graph.{k}', {}).get('calls', 0)
+                for k in ('eager', 'capture', 'replay')}
+
+    def failed():
+        bad = [repr(e.error) for e in tp._REST_GRAPHS._entries.values()
+               if e.error is not None]
+        if bad:
+            raise AssertionError(f'captures failed: {bad}')
+
+    fresh()
+    trace.reset()
+    trace.enable()
+    try:
+        bursts = {}
+        for name in ('gray8_2k_rev53', 'rgb8_2k_97ict'):
+            n = BURST if name.startswith('gray') else 1
+            a = config_streams(name, dev, 2147483659, max(n, 2))
+            b = a[n - 1::-1] if n > 1 else a[1:]
+            a = a[:n]
+            bursts[name] = (a, b)
+            pa, pb = plan(a), plan(b)
+            want = {id(a): eager(a), id(b): eager(b)}
+            vd = VideoDecoder(device=dev, to_device=True)
+            for k, s in enumerate((a, b, a, b)):
+                vd.submit(s)
+                equal(vd.collect_on_device(), want[id(s)], f'{name} burst {k}')
+            vd.drain_errors()
+            vd.close()
+            # the host's enqueue, eager and replayed, and what a profiler
+            # sees of each on the card
+            runner = tp._burst_runner(pa, n, rdev, True)
+            graph = tp._REST_GRAPHS._entries[runner.rest_key].graph
+            decs, _ = runner.tier1(*prepared(a)[1])
+            seen = {}
+            for label, fn in (('eager', runner._ops),
+                              ('replay', graph.replay)):
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    fn(decs)
+                host_ms = (time.perf_counter() - t0) / 5 * 1e3
+                torch.cuda.synchronize(dev)
+                with torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    fn(decs)
+                    torch.cuda.synchronize(dev)
+                ev = [e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+                seen[label] = dict(host_ms=host_ms, kernels=len(ev),
+                                   device_ms=sum(e.device_time_total
+                                                 for e in ev) / 1e3)
+            emit('rest_graph_geometry', config=name, frames=n,
+                 bit_equal_bursts=4, runner_keys_of_a_b=len({pa.key,
+                                                             pb.key}),
+                 pool_bytes=graph.nbytes,
+                 **{f'{k}_{m}': v for k, d in seen.items()
+                    for m, v in d.items()}, card=card_id)
+
+        # the video decoder's five modes on the gray geometry
+        a, b = bursts['gray8_2k_rev53']
+        for label, kw, depth in (
+                ('raw', dict(raw=True), 2), ('dense', dict(raw=False), 2),
+                ('to_device', dict(to_device=True), 2),
+                ('all_in_flight', dict(to_device=True), 4),
+                ('pageable', dict(to_device=True, stage_uploads=False), 2)):
+            raw = kw.get('raw', True)
+            want = {id(a): eager(a, raw), id(b): eager(b, raw)}
+            vd = VideoDecoder(device=dev, **kw)
+            order = (a, b, a, b)
+            if kw.get('to_device'):
+                got = in_flight(vd, order, vd.collect_on_device, depth)
+                vd.drain_errors()
+            else:
+                got = frames_host(in_flight(vd, order, vd.collect, depth))
+            vd.close()
+            for k, (g, s) in enumerate(zip(got, order)):
+                equal(g, want[id(s)], f'video {label} burst {k}')
+            emit('rest_graph_video', mode=label, bursts=len(order),
+                 bit_equal=True)
+
+        # two decoders, two streams and two threads, one graph
+        want = {id(a): eager(a), id(b): eager(b)}
+        errors, got = [], {}
+
+        def drive(k):
+            try:
+                vd = VideoDecoder(device=dev, to_device=True)
+                order = [(a, b)[(k + i) % 2] for i in range(8)]
+                outs = in_flight(vd, order, vd.collect_on_device, 3)
+                vd.drain_errors()
+                torch.cuda.current_stream(dev).synchronize()
+                vd.close()
+                got[k] = list(zip(order, outs))
+            except Exception as e:  # re-raised below, in the main thread
+                errors.append(e)
+
+        threads = [threading.Thread(target=drive, args=(k,))
+                   for k in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        for k, pairs in got.items():
+            for i, (s, o) in enumerate(pairs):
+                equal(o, want[id(s)], f'decoder {k} burst {i}')
+        emit('rest_graph_shared', decoders=2, bursts_each=8, in_flight=3,
+             bit_equal=True)
+
+        # a MosaicDecoder pass, three times: eager, capture, replay
+        data = open(os.path.join(TESTDATA, 'mosaic_rgb_320x256_rct_t128.j2c'),
+                    'rb').read()
+        first = MosaicDecoder(data).decode()
+        for k in range(2):
+            again = MosaicDecoder(data).decode()
+            if not all(np.array_equal(x, y) for x, y in zip(first, again)):
+                raise AssertionError(f'mosaic pass {k + 2} differs from the '
+                                     f'eager pass')
+        emit('rest_graph_mosaic', passes=3, bit_equal=True)
+    finally:
+        trace.disable()
+    st = trace.get_stats()
+    trace.reset()
+    failed()
+    n = calls(st)
+    emit('rest_graph', calls=n,
+         capture_ms_per_graph=st.get('decode.rest_graph.capture', {})
+         .get('ms_per_call'),
+         graphs=len(graphs()), pool_bytes=[g.nbytes for g in graphs()],
+         budget_bytes=tp._RestGraph.budget(rdev),
+         peak_bytes=torch.cuda.max_memory_allocated(dev),
+         peak_reserved_bytes=torch.cuda.max_memory_reserved(dev),
+         card=card_id)
+
+    # sequences that do not loop, decoded as the benchmark cells do
+    for name, frames, burst, depth in (('gray8_2k_rev53', 128, BURST, 2),
+                                       ('rgb8_2k_97ict', 48, 1, 1)):
+        streams = config_streams(name, dev, 2147483677, frames)
+        seq = [streams[i:i + burst] for i in range(0, frames, burst)]
+        runner_keys = {plan(s).key for s in seq}
+        fresh()
+        trace.reset()
+        trace.enable()
+        try:
+            vd = VideoDecoder(device=dev, to_device=True)
+            in_flight(vd, seq, vd.collect_on_device, depth)
+            vd.drain_errors()
+            vd.close()
+        finally:
+            trace.disable()
+        st = trace.get_stats()
+        trace.reset()
+        failed()
+        n = calls(st)
+        rest = st['decode.dispatch.rest']['calls']
+        with tp._RUNNERS._lock:
+            rest_keys = {r.rest_key for r in tp._RUNNERS._entries.values()}
+        emit('rest_graph_sequence', config=name, frames=frames,
+             bursts=len(seq), runner_keys=len(runner_keys),
+             graph_keys=len(rest_keys), calls=n,
+             replayed_share=max(0, n['replay'] - n['capture']) / rest,
+             runner_misses=st.get('decode.compile', {}).get('calls', 0),
+             pool_bytes=[g.nbytes for g in graphs()],
+             peak_bytes=torch.cuda.max_memory_allocated(dev),
+             peak_reserved_bytes=torch.cuda.max_memory_reserved(dev),
+             card=card_id)
+    fresh()
+    emit('rest_graph_phase', seconds=time.perf_counter() - t_phase,
+         card=card_id)
+
+
 def main() -> int:
     import argparse
     import numpy as np
@@ -4247,6 +4542,10 @@ def main() -> int:
 
     # 16. the upload A/B tool: VideoDecoder's upload strategies in turns
     ab_upload_phase(dev, kernels, K, E, card_id)
+
+    # 17. the rest of graph replayed from its CUDA graph against its
+    # eager launches
+    rest_graph_phase(dev, card_id)
 
     print(json.dumps({'kernels': list(kernels.values())}), flush=True)
     print(json.dumps({'ok': True, 'device': {

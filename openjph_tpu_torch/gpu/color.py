@@ -106,7 +106,10 @@ def irv_convert_to_integer(x, bit_depth: int, is_signed: bool,
     t = x.to(torch.float32) * _f32(float(1 << bit_depth))
     fl_up = float(1 << (bit_depth - 1))
     up_lim = (1 << (bit_depth - 1)) - 1
-    tr = t + torch.where(t >= 0, _f32(0.5), _f32(-0.5))
+    # the halves are made on t's device: host tensors here would be
+    # copied to the card on every call, which a CUDA graph cannot hold
+    half = torch.full((), 0.5, dtype=torch.float32, device=t.device)
+    tr = t + torch.where(t >= 0, half, -half)
     # out-of-range floats are replaced below; clamp first so the cast
     # itself stays defined
     v = torch.trunc(tr).clamp(-2.0 ** 31, 2.0 ** 31 - 128).to(torch.int32)

@@ -35,6 +35,7 @@ the rest.
 from __future__ import annotations
 
 import threading
+import warnings
 from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field, replace
@@ -518,9 +519,20 @@ class _Runner:
     SigProp / MagRef, and zeroes dead and broken lanes; ``rest(decs)``
     places the codeblocks into band planes and reconstructs; calling the
     runner does both and returns (err [lanes] bool, outputs), outputs
-    being per tile a tuple of per-component [nframes, h, w] tensors."""
+    being per tile a tuple of per-component [nframes, h, w] tensors.
 
-    def __init__(self, plan: _Plan, nframes: int, device, raw: bool):
+    ``rest`` launches its ops eagerly, unless ``graphs`` is set and the
+    device is a CUDA device: then it runs them through ``_REST_GRAPHS``,
+    which captures them into a CUDA graph at the second sighting of the
+    runner's ``rest_key`` and replays that graph from then on.  The ops'
+    control flow reads only that key (the plan's geometry, its groups'
+    sample widths, the frames and the device), so one graph serves every
+    runner of the key, whatever its word buckets or input layout.  The
+    burst runners set ``graphs``; a runner made for a single call
+    leaves it off."""
+
+    def __init__(self, plan: _Plan, nframes: int, device, raw: bool,
+                 graphs: bool = False):
         self.plan = plan
         self.F = nframes
         self.device = torch.device(device)
@@ -531,6 +543,10 @@ class _Runner:
             self.lane_starts.append(tl)
             tl += g.n_pad
         self.tl = tl
+        self.graphs = graphs
+        self.rest_key = (_geometry_key(plan.key),
+                         tuple(g.bits for g in plan.groups), nframes,
+                         self.device)
 
     def __call__(self, *args):
         with trace.stage('decode.dispatch.tier1'):
@@ -636,6 +652,17 @@ class _Runner:
         return decs, errs
 
     def rest(self, decs):
+        """Per tile, the tuple of its components' [F, h, w] outputs of
+        ``decs``, fresh tensors on every call: replayed from the key's
+        CUDA graph where there is one, else launched eagerly."""
+        if self.graphs and _RestGraph.supported(self.device):
+            outs = _REST_GRAPHS.run(self.rest_key, self._ops, decs)
+            if outs is not None:
+                return outs
+        with trace.stage('decode.rest_graph.eager'):
+            return self._ops(decs)
+
+    def _ops(self, decs):
         F = self.F
         plan = self.plan
         planes = [torch.zeros((F, H, W), dtype=torch.int64
@@ -717,6 +744,159 @@ class _Runner:
         return tuple(outs)
 
 
+class _RestGraph:
+    """The rest of graph of one key captured into a CUDA graph: static
+    inputs (a group's decoded lanes each), the graph, and its outputs in
+    the graph's own memory pool, ``nbytes`` large.
+
+    ``replay(decs)`` copies ``decs`` into the inputs, replays and clones
+    the outputs, all on the caller's current stream, so callers get
+    fresh tensors they may keep past the next replay.  A graph is shared
+    by every runner of its key, across decoders, streams and threads:
+    its entry's lock serialises replays, and each replay's stream waits
+    for the previous replay's clones before it overwrites the inputs."""
+
+    @staticmethod
+    def supported(device) -> bool:
+        return device.type == 'cuda'
+
+    @staticmethod
+    def budget(device) -> int:
+        """The pool bytes the graphs of ``device`` may hold together:
+        an eighth of the card."""
+        return torch.cuda.get_device_properties(device).total_memory // 8
+
+    def __init__(self, ops, decs, device):
+        self.device = device
+        # plain tensors, whether or not the capturing call runs in
+        # inference mode, so any later caller may copy into them
+        with torch.inference_mode(False):
+            self.ins = [torch.empty_like(d) for d in decs]
+        self.graph = torch.cuda.CUDAGraph()
+        # a stream of the capture's own: two threads may capture at once
+        with torch.cuda.device(device):
+            with torch.cuda.graph(self.graph,
+                                  stream=torch.cuda.Stream(device),
+                                  capture_error_mode='thread_local'):
+                self.outs = ops(self.ins)
+            index = torch.cuda.current_device()
+        self.done = None   # an event after the last replay's clones
+        pool = tuple(self.graph.pool())
+        self.nbytes = sum(
+            s['total_size'] for s in torch.cuda.memory_snapshot()
+            if s['device'] == index
+            and tuple(s.get('segment_pool_id', ())) == pool)
+
+    def replay(self, decs):
+        with torch.cuda.device(self.device):
+            stream = torch.cuda.current_stream()
+            if self.done is not None:
+                stream.wait_event(self.done)
+            for s, d in zip(self.ins, decs):
+                s.copy_(d)
+                # a dropped graph's inputs are not reused before the
+                # replays of every stream that read them have run
+                s.record_stream(stream)
+            self.graph.replay()
+            outs = tuple(tuple(c.clone() for c in t) for t in self.outs)
+            self.done = torch.cuda.Event()
+            self.done.record(stream)
+        return outs
+
+    def close(self) -> None:
+        """Frees the graph and its pool once its last replay has run."""
+        if self.done is not None:
+            self.done.synchronize()
+        self.graph = self.outs = self.ins = None
+
+
+class _RestEntry:
+    """A key's sightings (``calls``), its captured ``graph`` and what a
+    failed capture raised (``error``), under ``lock``."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.calls = 0
+        self.graph = None
+        self.error = None
+
+
+class _RestGraphs:
+    """The rest of graph's CUDA graphs by runner ``rest_key``.
+
+    ``run(key, ops, decs)`` counts a sighting of ``key``: the first
+    returns None (the caller launches ``ops`` eagerly), the second
+    captures ``ops`` into a ``_RestGraph``, and that sighting and every
+    later one return its replay.  A capture that raises leaves the key
+    eager for good, with a warning and the error kept.  Entries go out
+    least recently used first, past ``size`` keys or, for those holding
+    a graph, past ``_RestGraph.budget`` pool bytes on a device (the
+    newest graph stays); a key that went out starts again at its first
+    sighting."""
+
+    def __init__(self, size: int):
+        self.size = size
+        self._entries: 'OrderedDict' = OrderedDict()
+        self._lock = threading.Lock()
+
+    def entry(self, key) -> _RestEntry:
+        with self._lock:
+            e = self._entries.get(key)
+            if e is None:
+                e = self._entries[key] = _RestEntry()
+            else:
+                self._entries.move_to_end(key)
+        return e
+
+    def run(self, key, ops, decs):
+        e = self.entry(key)
+        with e.lock:
+            e.calls += 1
+            captured = e.calls == 2 and self._capture(e, key, ops, decs)
+            outs = None
+            if e.graph is not None:
+                with trace.stage('decode.rest_graph.replay'):
+                    outs = e.graph.replay(decs)
+        self._trim(key if captured else None)
+        return outs
+
+    def _capture(self, e, key, ops, decs) -> bool:
+        with trace.stage('decode.rest_graph.capture'):
+            try:
+                e.graph = _RestGraph(ops, decs, key[-1])
+            except Exception as err:  # any failure: the eager path stays
+                e.error = err
+                warnings.warn(f'the rest of graph stays eager: its CUDA '
+                              f'graph capture raised {err!r}',
+                              RuntimeWarning)
+        return e.graph is not None
+
+    def _trim(self, newest) -> None:
+        """Drops the least recently used entries past ``size`` and, on
+        ``newest``'s device, the graphs past its budget."""
+        out = []
+        with self._lock:
+            while len(self._entries) > self.size:
+                out.append(self._entries.popitem(last=False)[1])
+            if newest is not None and newest in self._entries:
+                device = newest[-1]
+                held = [(k, e) for k, e in self._entries.items()
+                        if k[-1] == device and e.graph is not None]
+                total = sum(e.graph.nbytes for _, e in held)
+                budget = _RestGraph.budget(device)
+                for k, e in held:
+                    if total <= budget:
+                        break
+                    if k != newest:
+                        total -= e.graph.nbytes
+                        out.append(self._entries.pop(k))
+        for e in out:
+            with e.lock:
+                if e.graph is not None:
+                    e.graph.close()
+                    e.graph = None
+
+
 def _as_band(d, dtype):
     """A group's decoded lanes as a band's samples: int64 patterns
     (64-bit groups) into an int32 (narrow) plane as the host decoder's
@@ -743,17 +923,18 @@ def _window(words, off, ln, width: int, guard: int):
 
 
 def _make_runner(plan: _Plan, nframes: int = 1, device='cuda',
-                 raw: bool = True) -> _Runner:
+                 raw: bool = True, graphs: bool = False) -> _Runner:
     """The fused decode of ``nframes`` frames of ``plan``'s geometry on
     ``device``; ``raw`` selects the raw-bytes (True) or dense-words
-    (False) input layout.  On a CUDA device the kernels it launches are
-    built here on first use, not at their first launch."""
+    (False) input layout; ``graphs`` replays the rest of graph from the
+    shared CUDA graphs (``_Runner``).  On a CUDA device the kernels it
+    launches are built here on first use, not at their first launch."""
     dev = resolve_device(device)
     if dev.type == 'cuda':
         block_decode_cuda.load()
         if plan.has_refine:
             block_refine_cuda.load()
-    return _Runner(plan, nframes, dev, raw)
+    return _Runner(plan, nframes, dev, raw, graphs)
 
 
 # ---------------------------------------------------------------------------
@@ -1164,15 +1345,18 @@ class _Cache:
 _F_BUCKETS = (8, 4, 2, 1)
 # burst runners by (plan key, frames, runner mode, device)
 _RUNNERS = _Cache(32)
+# their rest of graph's CUDA graphs by rest_key
+_REST_GRAPHS = _RestGraphs(64)
 
 
 def _burst_runner(plan: _Plan, nframes: int, device, raw: bool,
                   stage: str = 'decode.compile') -> _Runner:
-    """The cached runner of ``nframes`` frames of ``plan``'s key; a miss
-    makes it under the trace stage ``stage``."""
+    """The cached runner of ``nframes`` frames of ``plan``'s key, its
+    rest of graph replayed from the shared CUDA graphs; a miss makes it
+    under the trace stage ``stage``."""
     def make():
         with trace.stage(stage):
-            return _make_runner(plan, nframes, device, raw)
+            return _make_runner(plan, nframes, device, raw, graphs=True)
 
     return _RUNNERS.get((plan.key, nframes, raw, device), make)
 
@@ -1285,8 +1469,8 @@ class VideoDecoder:
     With tracing enabled each burst is a ``decode.burst`` span from its
     submit to its collect, and its stages count under it: the prep
     worker's queue wait, host prep, dispatch (upload, Tier-1 and the
-    rest of graph's launches), the caller's collect wait and error
-    checks (PERF.md section 3)."""
+    rest of graph: its eager launches, its capture or its replay), the
+    caller's collect wait and error checks (PERF.md section 3)."""
 
     def __init__(self, skip_res: int = 0, to_device: bool = False,
                  stage_uploads: bool = True, resilient: bool = False,

@@ -222,7 +222,8 @@ def test_torch_trace_shows_the_stages_of_every_thread(tmp_path):
 # ring's slot wait and pinned allocations exist only on a CUDA device)
 BURST_STAGES = {'decode.queue_wait', 'decode.collect_wait',
                 'decode.dispatch.upload', 'decode.dispatch.tier1',
-                'decode.dispatch.rest', 'decode.burst'}
+                'decode.dispatch.rest', 'decode.rest_graph.eager',
+                'decode.burst'}
 DISPATCH_PARTS = ('decode.dispatch.upload', 'decode.dispatch.tier1',
                   'decode.dispatch.rest')
 
