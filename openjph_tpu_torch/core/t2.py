@@ -298,9 +298,9 @@ def parse_precinct(res: ResolutionGeom, prec_idx: int,
 
     ``records``: optional dict band->(rec int32 [ncb, 6], pos int64
     [ncb]) filled VECTORIZED instead of building CodedBlock objects
-    (the TPU fast path consumes arrays; per-codeblock Python objects
-    are the dominant host cost of steady-state video decode).  rec
-    columns: (mmsbs, num_passes, len0, len1, included, nbytes)."""
+    (rec columns: (mmsbs, num_passes, len0, len1, included, nbytes)):
+    the per-packet twin of the record-mode walker, which parses a
+    tile-part's packets in one native call (codec.Decoder._walk)."""
     from .. import native
     if native.have_native():
         return _parse_precinct_native(res, prec_idx, coded, buf, pos,

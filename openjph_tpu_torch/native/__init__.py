@@ -52,6 +52,17 @@ def _load():
             ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p]
+        lib.t2_walk_tile_part.restype = ctypes.c_int64
+        lib.t2_walk_tile_part.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p]
+        lib.plan_lanes.restype = ctypes.c_int64
+        lib.plan_lanes.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_void_p] * 16
         lib.t2_emit_packet.restype = ctypes.c_int64
         lib.t2_emit_packet.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -179,6 +190,44 @@ def t2_parse_packet(data: np.ndarray, pos: int, data_left: int,
         1 if skip_data else 0,
         bands.ctypes.data, out_cb.ctypes.data, out_pos.ctypes.data,
         st.ctypes.data))
+
+
+def t2_walk_tile_part(data: np.ndarray, pos: int, data_left: int,
+                      packets: np.ndarray, k0: int, rec: np.ndarray,
+                      rpos: np.ndarray, st: np.ndarray) -> int:
+    """Parse a tile-part's packets from row ``k0`` of the tile's packet
+    table ``packets`` (int32 [npk, 36]) into its record tables ``rec``
+    (int32 [ncb, 6]) and ``rpos`` (int64 [ncb]); ``st`` (int64 [3])
+    receives the next row, pos and bytes left.  Returns 0 or the
+    malformed packet's code (see ojtpu_native.cpp)."""
+    lib = _load()
+    return int(lib.t2_walk_tile_part(
+        data.ctypes.data, pos, data_left, packets.ctypes.data,
+        packets.shape[0], k0, rec.ctypes.data, rpos.ctypes.data,
+        rpos.shape[0], st.ctypes.data))
+
+
+def plan_lanes(data: np.ndarray, recs, poss, groups: np.ndarray,
+               lane_map, lanes, code: np.ndarray,
+               gstat: np.ndarray) -> None:
+    """A frame's padded plan lanes from its tiles' record tables (``recs``
+    / ``poss``, one pair a tile) through a skeleton's lane map: ``groups``
+    int32 [ng, 4], ``lane_map`` (tile, record, qh, h, causal) a member,
+    ``lanes`` the nine output arrays of ``_Plan.lanes``, ``code`` the
+    broken code a lane, ``gstat`` int64 [ng, 4] (see ojtpu_native.cpp)."""
+    lib = _load()
+    rp = np.array([r.ctypes.data for r in recs], np.int64)
+    pp = np.array([p.ctypes.data for p in poss], np.int64)
+    ncb = np.array([p.shape[0] for p in poss], np.int64)
+    rc = lib.plan_lanes(
+        data.ctypes.data, data.shape[0], rp.ctypes.data, pp.ctypes.data,
+        ncb.ctypes.data, len(recs), groups.ctypes.data, groups.shape[0],
+        *(a.ctypes.data for a in lane_map),
+        *(a.ctypes.data for a in lanes), code.ctypes.data,
+        gstat.ctypes.data)
+    if rc:
+        raise RuntimeError('plan_lanes: a lane map entry lies outside '
+                           'its tile\'s records')
 
 
 def t2_emit_packet(bands: np.ndarray, recs: np.ndarray,

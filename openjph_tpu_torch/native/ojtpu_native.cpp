@@ -758,6 +758,178 @@ int64_t t2_parse_packet(const uint8_t* buf, int64_t pos,
   return 0;
 }
 
+// t2_walk_tile_part: the packets of one tile-part payload, parsed from
+// packet k0 of the tile's packet table until the data or the table
+// ends, each packet's codeblock records written in place once the whole
+// packet has parsed (codec.Decoder._walk).
+// pk: int32 [npk * 36], a row a packet in codestream order: the
+// t2_parse_packet band table (4 * 7), skip_data, may_use_sop, uses_eph,
+// the offset of each band's records in the tile's tables (4), and the
+// packet's codeblock count.
+// rec: int32 [ncb * 6] (mmsbs, num_passes, len0, len1, included,
+// nbytes); rpos: int64 [ncb] data positions.
+// st (int64 [3]) out: the next packet to parse, pos, bytes left; on an
+// error the next packet is the one after the malformed one, and pos /
+// bytes left are those before it.
+// Returns 0, a t2_parse_packet code, or 9 when a record falls outside
+// the tables.
+int64_t t2_walk_tile_part(const uint8_t* buf, int64_t pos,
+                          int64_t bytes_left, const int32_t* pk,
+                          int64_t npk, int64_t k0, int32_t* rec,
+                          int64_t* rpos, int64_t ncb, int64_t* st) {
+  int64_t maxcb = 1;
+  for (int64_t k = k0; k < npk; ++k)
+    maxcb = std::max<int64_t>(maxcb, pk[k * 36 + 35]);
+  std::vector<int32_t> cbs(static_cast<size_t>(maxcb) * 8);
+  std::vector<int64_t> cpos(static_cast<size_t>(maxcb));
+  int64_t k = k0;
+  int64_t rc = 0;
+  int64_t pst[3];
+  while (bytes_left > 0 && k < npk) {
+    const int32_t* P = pk + k * 36;
+    ++k;
+    rc = t2_parse_packet(buf, pos, bytes_left, P[29], P[30], P[28], P,
+                         cbs.data(), cpos.data(), pst);
+    if (rc) break;
+    const int64_t n = pst[2];
+    for (int64_t i = 0; i < n; ++i) {
+      const int32_t* c = cbs.data() + i * 8;
+      const int64_t at = static_cast<int64_t>(P[31 + c[0]]) + c[1];
+      if (at < 0 || at >= ncb) {
+        rc = 9;
+        break;
+      }
+      std::memcpy(rec + at * 6, c + 2, 6 * sizeof(int32_t));
+      rpos[at] = cpos[i];
+    }
+    if (rc) break;
+    pos = pst[0];
+    bytes_left = pst[1];
+  }
+  st[0] = k;
+  st[1] = pos;
+  st[2] = bytes_left;
+  return rc;
+}
+
+// plan_lanes: the per-lane arrays of a frame's plan
+// (gpu/pipeline.py::_build_plan) from the tiles' Tier-2 records, and the
+// host decoder's per-codeblock checks (_broken_lanes), in one pass a
+// lane group.
+// groups: int32 [ng * 4] of (members, padded lanes, wide band, first
+// entry in the lane map); the lane map (lt, li, qh, ht, cz) gives each
+// member its tile's place in rec_ptrs / pos_ptrs (whose tables hold
+// tile_ncb[t] records), its record, and its geometry: (height + 1) / 2,
+// height, causal.  Outputs, a padded lane each, groups in order: pos,
+// lcup, scup, p, qhl, npasses, len2, h_true, causal, and code (0, or 1
+// + the first check the lane fails, on live lanes only); gstat: int64
+// [ng * 4] of (bits, max scup, max lcup - scup over live lanes, -1 for
+// both without one; max len2).  A broken lane is planned dead.
+// Returns 0, or -1 when a lane's record lies outside its tile's tables.
+int64_t plan_lanes(const uint8_t* buf, int64_t buflen,
+                   const int64_t* rec_ptrs, const int64_t* pos_ptrs,
+                   const int64_t* tile_ncb, int64_t ntiles,
+                   const int32_t* groups, int64_t ng, const int32_t* lt,
+                   const int32_t* li, const int32_t* qh, const int32_t* ht,
+                   const uint8_t* cz, int64_t* o_pos, int64_t* o_lcup,
+                   int64_t* o_scup, int32_t* o_p, int32_t* o_qhl,
+                   int32_t* o_np, int64_t* o_l2, int32_t* o_h,
+                   uint8_t* o_cz, int32_t* o_code, int64_t* gstat) {
+  int64_t out = 0;
+  for (int64_t gi = 0; gi < ng; ++gi) {
+    const int32_t nm = groups[gi * 4], n_pad = groups[gi * 4 + 1];
+    const bool wide = groups[gi * 4 + 2] != 0;
+    const int64_t m0 = groups[gi * 4 + 3];
+    bool any_wide_lane = false;
+    // pass 1: the checks, in the host decoder's order; o_scup holds
+    // scup, o_np the clamped npasses, o_code the code, o_pos -2 for a
+    // live lane that passed them
+    for (int32_t j = 0; j < nm; ++j) {
+      const int64_t m = m0 + j, o = out + j;
+      const int32_t t = lt[m];
+      if (t < 0 || t >= ntiles || li[m] < 0 || li[m] >= tile_ncb[t])
+        return -1;
+      const int32_t* r =
+          reinterpret_cast<const int32_t*>(rec_ptrs[t]) + li[m] * 6;
+      const int64_t poss = reinterpret_cast<const int64_t*>(pos_ptrs[t])[li[m]];
+      const int32_t mm = r[0], npr = r[1], l0 = r[2], l1 = r[3];
+      const int32_t inc = r[4], nb = r[5];
+      const bool live = inc != 0 && npr != 0 && l0 != 0 && nb != 0;
+      int32_t np = (npr > 1 && l1 == 0) ? 1 : npr;
+      int32_t code = 0;
+      int64_t scup = 2;
+      if (live) {
+        const int64_t avail = std::min<int64_t>(nb, buflen - poss);
+        const int64_t need = static_cast<int64_t>(l0) + (npr > 1 ? l1 : 0);
+        if (avail < need) {
+          code = 1;
+        } else if (np > 3) {
+          code = 2;
+        } else if (mm >= 62) {
+          code = 3;
+        } else if (l0 < 2) {
+          code = 4;
+        } else {
+          const int64_t last = poss + l0;
+          if (last < 2 || last > buflen) {
+            code = 1;
+          } else {
+            scup = (static_cast<int64_t>(buf[last - 1]) << 4)
+                   + (buf[last - 2] & 0xF);
+            if (scup < 2 || scup > l0 || scup > 4079) code = 5;
+          }
+        }
+      }
+      if (mm == 29 || mm == 61) np = 1;
+      o_code[o] = code;
+      o_np[o] = np;
+      o_scup[o] = scup;
+      o_pos[o] = (live && code == 0) ? poss : -1;
+      if (live && code == 0 && mm >= 30) any_wide_lane = true;
+    }
+    const int32_t bits = (wide || any_wide_lane) ? 64 : 32;
+    const int32_t pbase = bits - 2;
+    int64_t smax = -1, msmax = -1, l2max = 0;
+    // pass 2: the lanes, dead and broken ones as padding
+    for (int32_t j = 0; j < n_pad; ++j) {
+      const int64_t o = out + j;
+      const bool member = j < nm;
+      const bool live = member && o_pos[o] >= 0;
+      o_cz[o] = member ? cz[m0 + j] : 0;
+      o_code[o] = member ? o_code[o] : 0;
+      if (!live) {
+        o_pos[o] = -1;
+        o_lcup[o] = 2;
+        o_scup[o] = 2;
+        o_p[o] = pbase;
+        o_qhl[o] = 0;
+        o_np[o] = 1;
+        o_l2[o] = 0;
+        o_h[o] = 0;
+        continue;
+      }
+      const int64_t m = m0 + j;
+      const int32_t* r =
+          reinterpret_cast<const int32_t*>(rec_ptrs[lt[m]]) + li[m] * 6;
+      const int32_t np = o_np[o];
+      o_lcup[o] = r[2];
+      o_p[o] = pbase - r[0];
+      o_qhl[o] = qh[m];
+      o_l2[o] = np <= 1 ? 0 : r[3];
+      o_h[o] = ht[m];
+      smax = std::max<int64_t>(smax, o_scup[o]);
+      msmax = std::max<int64_t>(msmax, o_lcup[o] - o_scup[o]);
+      l2max = std::max<int64_t>(l2max, o_l2[o]);
+    }
+    gstat[gi * 4] = bits;
+    gstat[gi * 4 + 1] = smax;
+    gstat[gi * 4 + 2] = msmax;
+    gstat[gi * 4 + 3] = l2max;
+    out += n_pad;
+  }
+  return 0;
+}
+
 }  // extern "C"
 
 namespace {

@@ -223,7 +223,9 @@ def test_torch_trace_shows_the_stages_of_every_thread(tmp_path):
 BURST_STAGES = {'decode.queue_wait', 'decode.collect_wait',
                 'decode.dispatch.upload', 'decode.dispatch.tier1',
                 'decode.dispatch.rest', 'decode.rest_graph.eager',
-                'decode.burst'}
+                'decode.burst', 'decode.host_prep.t2',
+                'decode.host_prep.plan', 'decode.host_prep.pack',
+                'decode.t2.walk'}
 DISPATCH_PARTS = ('decode.dispatch.upload', 'decode.dispatch.tier1',
                   'decode.dispatch.rest')
 
@@ -268,8 +270,11 @@ def test_video_decoder_records_every_burst_stage(to_device):
                            'decode.compile'}
     want |= {'decode.error_check'} if to_device else {'decode.fetch'}
     assert want <= set(st)
-    for name in BURST_STAGES - {'decode.compile'}:
+    for name in BURST_STAGES - {'decode.compile', 'decode.t2.walk'}:
         assert st[name]['calls'] == 3, name
+    # a walk a tile-part: two frames of one tile-part a burst
+    assert st['decode.t2.walk']['calls'] == 6
+    assert st['decode.t2.walk']['parents'] == ['decode.host_prep.t2']
     for name in DISPATCH_PARTS:
         assert st[name]['parents'] == ['decode.dispatch']
     assert sum(st[n]['seconds'] for n in DISPATCH_PARTS) <= \
