@@ -2167,8 +2167,8 @@ MOSAIC_CHECKED = 64  # seeded tiles checked of the 32K and 100K mosaics
 
 def cleanup_blocks(dev):
     """The full-size 64x64 codeblocks of a seeded 256x256 5/3 stream (the
-    port's card encode, parsed in object mode), each with the C++ scalar
-    decoder's output."""
+    port's card encode, parsed by the port's Tier-2), each with the C++
+    scalar decoder's output."""
     import numpy as np
     from openjph_tpu_torch import native
     from openjph_tpu_torch.entry import _full_blocks
@@ -2191,7 +2191,7 @@ def mosaic_phase(dev, kernels, K, E, R, R5, card_id):
     import numpy as np
     import torch
     from openjph_tpu_torch.gpu.pipeline import decode_gpu
-    from openjph_tpu_torch.gpu.bitprep import prep_cleanup_streams
+    from openjph_tpu_torch.native import prep_cleanup_streams
     from openjph_tpu_torch.parallel import (MosaicDecoder, MosaicEncoder,
                                             decode_blocks_sharded, make_mesh)
     from openjph_tpu_torch.parallel._testing import (
@@ -2839,8 +2839,8 @@ def codeblock_batches(path: str, dev, bits: int):
     card."""
     import numpy as np
     import torch
-    from openjph_tpu_torch.gpu.bitprep import prep_cleanup_streams
-    from openjph_tpu_torch.gpu.block_refine import prep_refine_streams
+    from openjph_tpu_torch.native import (prep_cleanup_streams,
+                                         prep_refine_streams)
     z = np.load(path)
     by_shape = {}
     for i in range(len(z['w'])):

@@ -1,21 +1,20 @@
 """Host halves of the HTJ2K codec.
 
-Decode: markers -> geometry -> Tier-2 packet parse, and the final
-placement of tile planes on the canvas.  Encode: marker segments and
+Decode: markers -> geometry -> Tier-2 (each tile-part's packets walked
+into flat record tables in one native call), and the final placement
+of tile planes on the canvas.  Encode: marker segments and
 quantization parameters, tile-part division and codestream assembly.
 
 A copy of the JAX package's ``codec.py`` without its scalar Tier-1
-paths (the structural flow of ojph_codestream_local.cpp /
-ojph_tile.cpp).  The device halves live in ``gpu/pipeline.py``
-(decode, multi-pass codeblocks included) and ``gpu/encode_pipeline.py``
-(encode, cleanup pass only).
+paths and its packet-at-a-time Tier-2 parse (the structural flow of
+ojph_codestream_local.cpp / ojph_tile.cpp).  The device halves live in
+``gpu/pipeline.py`` (decode, multi-pass codeblocks included) and
+``gpu/encode_pipeline.py`` (encode, cleanup pass only).
 """
 from __future__ import annotations
 
 import contextlib
 import struct
-import threading
-from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -28,9 +27,9 @@ from .core.geometry import TileGeom, build_tile, build_tile_grid
 from .core.profiles import check_broadcast, check_imf
 from .core.quant import (COMP_Y, default_irrev_delta, make_irrev_qcd,
                          make_qfactor_qcd, make_rev_qcd)
-from .core.t2 import (_T2_ERRORS, CodedBlock, parse_precinct,
-                      precinct_iterator)
+from .core.t2 import _T2_ERRORS, CodedBlock, precinct_iterator
 from .utils import trace
+from .utils.cache import Cache
 
 
 @dataclass
@@ -38,14 +37,14 @@ class _TileState:
     geom: TileGeom
     # Tier-2's tables of the tile, from the header alone (_TileWalk)
     walk: '_TileWalk' = None
-    # coded[comp][res][band] -> list over the band codeblock grid (object
-    # mode; record mode builds them in _materialize_coded)
+    # coded[comp][res][band] -> list over the band codeblock grid, built
+    # from the records by Decoder._materialize_coded
     coded: List[List[List[Optional[List[Optional[CodedBlock]]]]]] = \
         field(default_factory=list)
-    # record mode: the tile's records, int32 [ncb, 6] of (mmsbs,
-    # num_passes, len0, len1, included, nbytes) and int64 [ncb] data
-    # pos, bands in (comp, res, band) order (walk.layout); rec[(c, r)][band]
-    # -> (rows, pos), views of the band's part of the two
+    # the tile's records, int32 [ncb, 6] of (mmsbs, num_passes, len0,
+    # len1, included, nbytes) and int64 [ncb] data pos, bands in (comp,
+    # res, band) order (walk.layout); rec[(c, r)][band] -> (rows, pos),
+    # views of the band's part of the two
     rec_table: np.ndarray = None
     rec_pos: np.ndarray = None
     rec: dict = field(default_factory=dict)
@@ -120,28 +119,18 @@ class _TileWalk:
 # same header every frame (the restart() reuse pattern,
 # ojph_codestream.h:109-122), so share one geometry, and the tiles'
 # Tier-2 tables (_TileWalk), across decoders.
-_GEOM_CACHE: 'OrderedDict[bytes, tuple]' = OrderedDict()
-_GEOM_CACHE_MAX = 32
-_GEOM_LOCK = threading.Lock()
+_GEOM_CACHE = Cache(32)
 
 
 def _cached_geometry(data, hdr):
     """(tile rects, tile geometries, their _TileWalks) of a header."""
-    key = bytes(data[:hdr.header_size])
-    with _GEOM_LOCK:
-        ent = _GEOM_CACHE.get(key)
-        if ent is not None:
-            _GEOM_CACHE.move_to_end(key)
-            return ent
-    tile_rects = build_tile_grid(hdr.siz)
-    geoms = tuple(build_tile(hdr, i, tr)
-                  for i, tr in enumerate(tile_rects))
-    ent = (tile_rects, geoms, tuple(_TileWalk(g) for g in geoms))
-    with _GEOM_LOCK:
-        _GEOM_CACHE[key] = ent
-        while len(_GEOM_CACHE) > _GEOM_CACHE_MAX:
-            _GEOM_CACHE.popitem(last=False)
-    return ent
+    def make():
+        tile_rects = build_tile_grid(hdr.siz)
+        geoms = tuple(build_tile(hdr, i, tr)
+                      for i, tr in enumerate(tile_rects))
+        return tile_rects, geoms, tuple(_TileWalk(g) for g in geoms)
+
+    return _GEOM_CACHE.get(bytes(data[:hdr.header_size]), make)
 
 
 class _LazyTiles:
@@ -185,7 +174,7 @@ class Decoder:
     def __init__(self, data: bytes, resilient: bool = False,
                  skipped_res_for_read: int = 0,
                  skipped_res_for_recon: int = 0,
-                 record_t2: bool = False, lazy_tiles: bool = False):
+                 lazy_tiles: bool = False):
         """``lazy_tiles``: index the tile-parts, and build and parse a
         tile only when ``self.tiles[i]`` asks for it (_LazyTiles), so
         that the decoder's memory does not grow with the tile count."""
@@ -197,15 +186,12 @@ class Decoder:
             if skipped_res_for_recon else skipped_res_for_read
         # restrict_input_resolution semantics
         # (ojph_codestream.h:288-306): skip_res_for_read >= for_recon
-        # record_t2: Tier-2 fills each tile's flat numpy record tables
-        # instead of CodedBlock objects, a tile-part in one native call
-        # (_walk; the fused device path consumes the tables; CodedBlocks
-        # materialize lazily).  Needs the native parser.
-        # Resilience keeps record mode: the native parser writes a
-        # packet's records only once the whole packet parsed, and turns
-        # a codeblock cut off by the end of data into a dead record, so
-        # the arrays hold what object mode's CodedBlocks would.
-        self.record_t2 = record_t2 and native.have_native()
+        # Tier-2 fills each tile's flat numpy record tables, a tile-part
+        # in one native call (_walk; the fused device path consumes the
+        # tables; CodedBlocks materialize on demand).  Under resilience
+        # the native parser writes a packet's records only once the
+        # whole packet parsed, and turns a codeblock cut off by the end
+        # of data into a dead record.
         if lazy_tiles:
             self.tile_rects = build_tile_grid(self.hdr.siz)
             self.tiles = _LazyTiles(self)
@@ -217,9 +203,6 @@ class Decoder:
     def _new_tile(self, walk: _TileWalk) -> _TileState:
         """An empty state of the tile whose Tier-2 tables are ``walk``."""
         st = _TileState(walk.geom, walk)
-        if not self.record_t2:
-            st.coded = _empty_coded(walk.geom)
-            return st
         st.rec_table = rows = np.zeros((walk.ncb, 6), np.int32)
         st.rec_pos = poss = np.zeros(walk.ncb, np.int64)
         for cr, bands in walk.res_bands:
@@ -310,15 +293,11 @@ class Decoder:
 
     def _parse_one_tile_part(self, st: _TileState, pos: int,
                              data_left: int):
-        if self.record_t2:
-            with trace.stage('decode.t2.walk'):
-                self._walk(st, pos, data_left)
-        else:
-            with trace.stage('decode.t2.packets'):
-                self._parse_packets(st, pos, data_left)
+        with trace.stage('decode.t2.walk'):
+            self._walk(st, pos, data_left)
 
     def _walk(self, st: _TileState, pos: int, data_left: int):
-        """Record mode: the tile-part's packets in one native call, from
+        """The tile-part's packets in one native call, from
         the tile's next packet until the data or the packets end."""
         _, table = st.walk.packets(self.hdr, self.skip_read)
         buf = self.data
@@ -333,30 +312,13 @@ class Decoder:
             exc, msg = _T2_ERRORS.get(rc, (ValueError, 'malformed packet'))
             raise exc(msg)
 
-    def _parse_packets(self, st: _TileState, pos: int, data_left: int,
-                       records: bool = False):
-        """The tile-part's packets one at a time: CodedBlocks in
-        ``st.coded``, or with ``records`` the record tables (the walker's
-        per-packet twin)."""
-        seq, _ = st.walk.packets(self.hdr, self.skip_read)
-        buf = self.data
-        while data_left > 0 and st.next_packet < len(seq):
-            c, r, pidx, skip = seq[st.next_packet]
-            st.next_packet += 1
-            cod = self.hdr.get_cod(c)
-            pos, data_left = parse_precinct(
-                st.geom.comps[c].resolutions[r], pidx,
-                None if records else st.coded[c][r], buf, pos, data_left,
-                cod.uses_sop, cod.uses_eph, skip_data=skip,
-                records=st.rec[(c, r)] if records else None)
-
     def _materialize_coded(self):
-        """Record mode -> CodedBlock objects (lazily, for callers that
-        walk st.coded); idempotent."""
-        if not self.record_t2:
-            return
+        """The records -> CodedBlock objects in ``st.coded``, for callers
+        that walk them; idempotent."""
         buf = self.data
         for st in self.tiles:
+            if st.coded:
+                continue
             st.coded = _empty_coded(st.geom)
             for (c, r), recs in st.rec.items():
                 for b, (rb, pb) in recs.items():
@@ -374,7 +336,6 @@ class Decoder:
                             o = int(pb[i])
                             cb.data = bytes(buf[o:o + nb])
                         coded[i] = cb
-        self.record_t2 = False
 
     def _assemble(self, tile_planes) -> List[np.ndarray]:
         """Place per-tile component planes onto the full canvas."""

@@ -61,9 +61,10 @@ def entry(device='cuda'):
 
 def _full_blocks(stream: bytes):
     """(data, missing_msbs, cleanup length) of every coded 64x64
-    codeblock of the stream's first tile (object-mode parse)."""
+    codeblock of the stream's first tile."""
     from .codec import Decoder
     dec = Decoder(stream)
+    dec._materialize_coded()
     st = dec.tiles[0]
     blocks = []
     for c, comp in enumerate(st.geom.comps):
@@ -88,7 +89,7 @@ def dryrun_multichip(n_devices: int, device='cuda') -> None:
     CUDA mesh of more devices than are visible raises make_mesh's
     ValueError; nothing moves to the CPU by itself."""
     from . import encode
-    from .gpu.bitprep import prep_cleanup_streams
+    from .native import prep_cleanup_streams
     from .parallel import (decode_blocks_sharded, decode_mosaic,
                            encode_mosaic, make_mesh, pad_to_multiple)
     from .parallel._testing import start_ranks, wait_ranks

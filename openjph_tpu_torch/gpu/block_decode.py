@@ -12,14 +12,14 @@ the MagSgn work one quad row at a time, vectorised over lanes and quads
 reference the CUDA kernel is held against and the path CPU tensors
 take; it is not fast.
 
-Streams arrive as dense, LSB-first, unstuffed words (bitprep.py
-conventions), one row per lane.  uint32 quantities are held in int64
-tensors; a reader's window is one int64 holding at most 63 valid bits
-(a refill adds a 32-bit word whenever fewer than 32 remain).
-Outputs follow the kernel's contract: ``dec`` int32 [N, height, width]
-holding the uint32 sign-magnitude bit pattern, rows at or past
-2*qh_lim zeroed; ``err`` bool [N], set where U_q > missing_msbs + 2
-on a quad row below qh_lim.
+Streams arrive as dense, LSB-first, unstuffed words (as
+native.prep_cleanup_streams makes them), one row per lane.  uint32
+quantities are held in int64 tensors; a reader's window is one int64
+holding at most 63 valid bits (a refill adds a 32-bit word whenever
+fewer than 32 remain).  Outputs follow the kernel's contract:
+``dec`` int32 [N, height, width] holding the uint32 sign-magnitude bit
+pattern, rows at or past 2*qh_lim zeroed; ``err`` bool [N], set where
+U_q > missing_msbs + 2 on a quad row below qh_lim.
 
 The 64-bit mode (``bits=64``; the reference's ojph_decode_codeblock64,
 which the JAX package runs on its host for more than 30 bit planes)

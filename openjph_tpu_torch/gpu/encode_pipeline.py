@@ -53,13 +53,14 @@ from ..core.geometry import build_tile, build_tile_grid
 from ..core.markers import Dfs
 from ..core.t2 import CodedBlock, encode_precinct, precinct_iterator
 from ..utils import trace
+from ..utils.cache import Cache
 from . import block_encode_cuda
 from . import color as clr
 from . import dwt
 from .block_encode_cuda import encode_cleanup
 from .block_refine_encode import cap_words
 from .block_refine_encode_cuda import encode_refine
-from .pipeline import _Cache, _res_band_list, _wide, resolve_device
+from .pipeline import _res_band_list, _wide, resolve_device
 from .quant import tx_to_cb
 from .staging import Stager
 
@@ -664,7 +665,7 @@ def _tile_packets(enc, geom, coded):
 
 _EF_BUCKETS = (8, 4, 2, 1)
 # burst runners by (plan key, frames, device)
-_ENC_RUNNERS = _Cache(32)
+_ENC_RUNNERS = Cache(32)
 
 
 def _enc_runner(plan: _EncPlan, nframes: int, device,

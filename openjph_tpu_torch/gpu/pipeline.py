@@ -51,13 +51,12 @@ from ..codec import Decoder
 from ..core.message import warn as _wrn
 from ..core.markers import Dfs
 from ..utils import trace
+from ..utils.cache import Cache
 from . import block_decode_cuda, block_refine_cuda
 from . import color as clr
 from . import dwt
-from .bitprep import prep_cleanup_streams
 from .block_decode import srl
 from .block_decode_cuda import decode_cleanup, decode_cleanup_raw
-from .block_refine import prep_refine_streams
 from .block_refine_cuda import refine, refine_raw
 from .quant import tx_from_cb
 from .staging import Stager
@@ -174,8 +173,7 @@ class _SkelGroup:
     __slots__ = ('gid', 'w', 'h', 'n_pad', 'nm', 'lanes', 'wide')
 
 
-_SKELS: 'OrderedDict' = OrderedDict()
-_SKELS_LOCK = threading.Lock()
+_SKELS = Cache(32)
 
 
 def _plan_skeleton(dec, tile_indices):
@@ -188,16 +186,7 @@ def _plan_skeleton(dec, tile_indices):
     tiles = None if tile_indices is None else tuple(
         _tile_signature(dec.tiles[ti]) for ti in tile_indices)
     ck = (bytes(dec.data[:dec.hdr.header_size]), dec.skip_recon, tiles)
-    with _SKELS_LOCK:
-        if ck in _SKELS:
-            _SKELS.move_to_end(ck)
-            return _SKELS[ck]
-    skel = _build_skeleton(dec, tile_indices)
-    with _SKELS_LOCK:
-        _SKELS[ck] = skel
-        while len(_SKELS) > 32:
-            _SKELS.popitem(last=False)
-    return skel
+    return _SKELS.get(ck, lambda: _build_skeleton(dec, tile_indices))
 
 
 def _tile_signature(st) -> tuple:
@@ -970,12 +959,16 @@ def _blob_margin(pairs) -> int:
     return 4 * (mw + _ROW + 2)
 
 
-def _pack_device_records(pairs):
-    """Raw-bytes blob pack: per-lane byte positions come straight from
-    plan.lanes; the native builder copies each lane's d[0:lcup-1] out
-    of its frame's stream buffer (byte lcup-2 OR'd 0xF).  Refine plans
-    append each lane's refinement segment d[lcup : lcup+len2] right
-    after its cleanup bytes."""
+def _pack_device(pairs):
+    """Raw-bytes layout of a burst of (decoder, plan) pairs: each
+    lane's blob range is d[0:lcup-1] (byte lcup-2 OR'd 0xF), followed by
+    its refinement segment when it has one; the kernels read MagSgn from
+    the first lcup-scup bytes, MEL / VLC from the rest of the cleanup
+    bytes, forward / backward, and SigProp / MagRef from the refinement
+    segment, forward / backward.  Per-lane byte positions come straight
+    from plan.lanes; native.build_seg_blob_ptrs and copy_ranges_ptrs copy
+    each lane's ranges out of its frame's stream buffer.  Always returns
+    (buf,)."""
     refine = pairs[0][1].has_refine
     lcall = np.concatenate([p.lanes[1] for _, p in pairs])
     scall = np.concatenate([p.lanes[2] for _, p in pairs])
@@ -1035,16 +1028,6 @@ def _finish_device_pack(blob, base, lcups, scups, p, qhl, rinfo=None):
     return (np.concatenate(parts),)
 
 
-def _pack_device(pairs):
-    """Raw-bytes layout of a burst of (decoder, plan) pairs: each
-    lane's blob range is d[0:lcup-1] (byte lcup-2 OR'd 0xF), followed by
-    its refinement segment when it has one; the kernels read MagSgn from
-    the first lcup-scup bytes, MEL / VLC from the rest of the cleanup
-    bytes, forward / backward, and SigProp / MagRef from the refinement
-    segment, forward / backward.  Always returns (buf,)."""
-    return _pack_device_records(pairs)
-
-
 def _pack_dense(pairs):
     """Dense-words layout of a burst: (words, meta), and rmeta for a
     refine plan (packed through the per-group arrays, as the JAX
@@ -1068,8 +1051,8 @@ class GpuDecoder(Decoder):
     """Decoder whose Tier-1 and reconstruction run on ``device``
     ('cuda' by default; 'cpu' runs the kernels' plain versions).
 
-    Tier-2 runs in record mode (flat numpy arrays, no per-codeblock
-    Python objects); the planner and packers consume the arrays.
+    Tier-2 fills flat numpy record tables (no per-codeblock Python
+    objects); the planner and packers consume the tables.
     ``raw`` selects the raw-bytes runner (True) or the dense-words one.
     Multi-pass codeblocks (SigProp / MagRef) are decoded on the device
     after their cleanup pass.  A broken codeblock raises ValueError, or
@@ -1086,7 +1069,6 @@ class GpuDecoder(Decoder):
         self.device = resolve_device(device)
         self.raw = raw
         self.zeroed = (0, 0)
-        kwargs.setdefault('record_t2', True)
         super().__init__(data, **kwargs)
 
     @torch.inference_mode()
@@ -1135,8 +1117,8 @@ class GpuDecoder(Decoder):
                      for i in range(sl.start, sl.stop)]
             lcups = lcupa[sl].copy()
             scups = scupa[sl].copy()
-            streams = prep_cleanup_streams(datas, lcups, scups,
-                                           min_words=g.words)
+            streams = native.prep_cleanup_streams(datas, lcups, scups,
+                                                  min_words=g.words)
             wm, wv, ws = g.words
             gd = {
                 'mel': streams['mel'], 'vlc': streams['vlc'],
@@ -1152,8 +1134,8 @@ class GpuDecoder(Decoder):
             }
             if refine:
                 len2s = plan.lanes[6][sl].copy()
-                ref = prep_refine_streams(datas, lcups, len2s,
-                                          min_words=g.rwords)
+                ref = native.prep_refine_streams(datas, lcups, len2s,
+                                                 min_words=g.rwords)
                 lr = np.minimum(g.rwords[0], len2s * 8 // 32 + 3) \
                     .astype(np.int32)
                 gd.update({'spp': ref['spp'], 'mrp': ref['mrp'],
@@ -1236,31 +1218,9 @@ def decode_gpu(data: bytes, device='cuda', skip_res: int = 0,
 # Bursts and video
 # ---------------------------------------------------------------------------
 
-class _Cache:
-    """A bounded map, least recently used entries out first, safe
-    across threads: ``get(key, make)`` returns ``key``'s entry, made by
-    ``make()`` on a miss."""
-
-    def __init__(self, size: int):
-        self.size = size
-        self._entries: 'OrderedDict' = OrderedDict()
-        self._lock = threading.Lock()
-
-    def get(self, key, make):
-        with self._lock:
-            value = self._entries.get(key)
-            if value is None:
-                value = self._entries[key] = make()
-                while len(self._entries) > self.size:
-                    self._entries.popitem(last=False)
-            else:
-                self._entries.move_to_end(key)
-            return value
-
-
 _F_BUCKETS = (8, 4, 2, 1)
 # burst runners by (plan key, frames, runner mode, device)
-_RUNNERS = _Cache(32)
+_RUNNERS = Cache(32)
 # their rest of graph's CUDA graphs by rest_key
 _REST_GRAPHS = _RestGraphs(64)
 
@@ -1329,18 +1289,13 @@ def _decoders(streams, device, raw: bool, resilient: bool,
                        skipped_res_for_recon=skip_res) for s in streams]
 
 
-def _plan_frame(dec: GpuDecoder) -> _Plan:
-    """``dec``'s plan."""
-    return _build_plan(dec)
-
-
 def _burst_plans(decs) -> List[_Plan]:
     """The plans of a burst that one runner takes, or None when the
     burst decodes frame by frame (its size is not in _F_BUCKETS, or its
     frames differ in geometry)."""
     if len(decs) not in _F_BUCKETS:
         return None
-    plans = [_plan_frame(d) for d in decs]
+    plans = [_build_plan(d) for d in decs]
     if len({_geometry_key(p.key) for p in plans}) != 1:
         return None
     return _merge_words(plans)
@@ -1570,7 +1525,7 @@ def decode_gpu_batch(streams: List[bytes], device='cuda',
     by_geom: Dict[tuple, list] = {}
     for i, d in enumerate(decs):
         with trace.stage('decode.plan'):
-            plan = _plan_frame(d)
+            plan = _build_plan(d)
         by_geom.setdefault(_geometry_key(plan.key), []).append((i, d, plan))
     for items in by_geom.values():
         pos = 0

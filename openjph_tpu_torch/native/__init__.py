@@ -6,8 +6,9 @@ byte stuffing of device-packed words), plus the scalar codeblock
 decoder and encoder that the kernels are held against.
 
 The source is a copy of the JAX package's ``ojtpu_native.cpp``.  The
-library is required: record-mode Tier-2 and the packers have no numpy
-twin in this package, so a failed build raises instead of degrading.
+library is required: Tier-2, the planner, the unstuffers and the packers
+have no numpy twin in this package (the tests hold them against the JAX
+package's), so a failed build raises instead of degrading.
 """
 from __future__ import annotations
 
@@ -46,12 +47,6 @@ def _load():
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_int64]
-        lib.t2_parse_packet.restype = ctypes.c_int64
-        lib.t2_parse_packet.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p]
         lib.t2_walk_tile_part.restype = ctypes.c_int64
         lib.t2_walk_tile_part.argtypes = [
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
@@ -111,11 +106,14 @@ def _threads(nthreads: int) -> int:
 
 
 def prep_cleanup_streams(datas, lcups, scups, min_words=None):
-    """Batch unstuffer; same contract as bitprep.prep_cleanup_streams
-    (returns dict of uint32 [N, W]).
-
-    min_words: optional (mel_w, vlc_w, ms_w) lower bounds so callers
-    can bucket widths."""
+    """Batch unstuffer of HT cleanup segments: each segment's MEL, VLC
+    (backward) and MagSgn streams become dense bit sequences in
+    consumption order, packed LSB-first into uint32 words (bit t of word
+    j = bit 32j+t), past the end filled as its reader fills them (the
+    rules that gpu/unstuff.py states and applies to the raw bytes; the
+    JAX package's tpu/bitprep.py is the tests' reference).  Returns
+    {'mel', 'vlc', 'ms'}: uint32 [N, W] each.  min_words: optional
+    (mel_w, vlc_w, ms_w) lower bounds so callers can bucket widths."""
     lib = _load()
     n = len(datas)
     lcups = np.ascontiguousarray(lcups, dtype=np.int64)
@@ -149,8 +147,10 @@ def prep_cleanup_streams(datas, lcups, scups, min_words=None):
 
 def prep_refine_streams(datas, lcups, len2s, min_words=None,
                         nthreads: int = 0):
-    """Native SigProp/MagRef stream prep; same contract as
-    gpu/block_refine.py::prep_refine_streams_np (datas[i] holds at least
+    """SigProp (forward, zero fill) and MagRef (backward, rev_init_mrp
+    unstuffing) dense word streams of a batch's refinement segments,
+    data[lcup : lcup+len2]; the contract of the JAX package's numpy
+    refinement prep in tpu/block_refine.py (datas[i] holds at least
     lcups[i] + len2s[i] bytes)."""
     lib = _load()
     n = len(datas)
@@ -177,19 +177,6 @@ def prep_refine_streams(datas, lcups, len2s, min_words=None,
         len2s.ctypes.data, n, spp.ctypes.data, ws,
         mrp.ctypes.data, wm, _threads(nthreads))
     return {'spp': spp, 'mrp': mrp}
-
-
-def t2_parse_packet(data: np.ndarray, pos: int, data_left: int,
-                    may_use_sop: bool, uses_eph: bool, skip_data: bool,
-                    bands, out_cb, out_pos, st) -> int:
-    """Parse one packet header + body ranges (see ojtpu_native.cpp)."""
-    lib = _load()
-    return int(lib.t2_parse_packet(
-        data.ctypes.data, pos, data_left,
-        1 if may_use_sop else 0, 1 if uses_eph else 0,
-        1 if skip_data else 0,
-        bands.ctypes.data, out_cb.ctypes.data, out_pos.ctypes.data,
-        st.ctypes.data))
 
 
 def t2_walk_tile_part(data: np.ndarray, pos: int, data_left: int,

@@ -81,7 +81,7 @@ def decode_blocks_sharded(mesh: Mesh, streams, p, width: int,
     mesh's devices, through the HT cleanup decoder's dense readers (K1
     on a CUDA device, its plain version on the CPU).  ``streams`` holds
     the dense word rows 'mel', 'vlc', 'ms' ([N, W*] uint32, as
-    gpu/bitprep.prep_cleanup_streams makes them); ``p`` = 30 -
+    native.prep_cleanup_streams makes them); ``p`` = 30 -
     missing_msbs [N].  N must divide evenly by the mesh size (pad with
     replicas via pad_to_multiple).  Returns (dec, err): on a one-device
     mesh the [N, height, width] int32 (uint32 bit patterns) and [N] bool

@@ -214,9 +214,10 @@ def test_stages_carry_the_jax_names(gray, monkeypatch):
     import re
     from openjph_tpu_torch import trace
     from openjph_tpu_torch.gpu import encode_pipeline, pipeline
+    from openjph_tpu_torch.utils.cache import Cache
     # cold runner caches, so that the compile stages run
-    monkeypatch.setattr(pipeline, '_RUNNERS', pipeline._Cache(32))
-    monkeypatch.setattr(encode_pipeline, '_ENC_RUNNERS', pipeline._Cache(32))
+    monkeypatch.setattr(pipeline, '_RUNNERS', Cache(32))
+    monkeypatch.setattr(encode_pipeline, '_ENC_RUNNERS', Cache(32))
     img, s, ref, kw = gray
     trace.reset()
     trace.enable()

@@ -21,7 +21,7 @@ from openjph_tpu.coding.decoder import decode_codeblock
 from openjph_tpu.parallel import dwt_sharded as jdwt
 from openjph_tpu.parallel.mesh import make_mesh as jmesh
 
-from openjph_tpu_torch.gpu.bitprep import prep_cleanup_streams
+from openjph_tpu_torch.native import prep_cleanup_streams
 from openjph_tpu_torch.parallel._testing import start_ranks, wait_ranks
 from openjph_tpu_torch.parallel.dwt_sharded import seeded_plane
 from openjph_tpu_torch.parallel.mesh import (decode_blocks_sharded,

@@ -39,8 +39,8 @@ import openjph_tpu_torch
 from openjph_tpu_torch import native
 from openjph_tpu_torch.gpu import block_decode as pbd
 from openjph_tpu_torch.gpu import block_refine_cuda as R
-from openjph_tpu_torch.gpu.bitprep import prep_cleanup_streams
-from openjph_tpu_torch.gpu.block_refine import prep_refine_streams
+from openjph_tpu_torch.native import (prep_cleanup_streams,
+                                     prep_refine_streams)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TESTDATA = os.path.join(REPO, 'openjph_tpu_torch', 'testdata')

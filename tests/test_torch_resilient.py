@@ -194,10 +194,8 @@ def _coded_fields(cb):
 
 def _assert_parses_agree(part):
     rec = tp.GpuDecoder(part, device='cpu', resilient=True)
-    assert rec.record_t2
     rec._materialize_coded()
     obj = jcodec.Decoder(part, resilient=True)
-    assert not obj.record_t2
     n = 0
     for st, jst in zip(rec.tiles, obj.tiles):
         for per_res, jper_res in zip(st.coded, jst.coded):
@@ -211,8 +209,8 @@ def _assert_parses_agree(part):
 
 
 def test_record_parse_equals_object_parse(full_stream):
-    """The planner keeps Tier-2's record mode under resilience: on every
-    cut and flip of this file, the record arrays materialise to the
+    """Under resilience, on every cut and flip of this file, the
+    port's Tier-2 record arrays materialise to the
     CodedBlocks of the JAX package's object-mode resilient parse."""
     _, s = full_stream
     parts = [s[:len(s) * cut // NUM_CUTS] for cut in range(1, NUM_CUTS)]
@@ -226,7 +224,7 @@ def test_record_parse_equals_object_parse(full_stream):
 
 def _first_live_row(dec):
     """(record rows, index, (tile, comp, res, band)) of the first live
-    codeblock of a record-mode parse."""
+    codeblock of a parse."""
     for ti, st in enumerate(dec.tiles):
         for (c, r), recs in st.rec.items():
             for b, (rb, _) in recs.items():

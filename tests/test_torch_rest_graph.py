@@ -133,7 +133,7 @@ def _quiet():
 
 
 def _break_a_lane(dec):
-    """Give the first live codeblock of ``dec``'s record-mode parse a
+    """Give the first live codeblock of ``dec``'s Tier-2 parse a
     length the host decoder rejects (lcup < 2)."""
     for st in dec.tiles:
         for recs in st.rec.values():

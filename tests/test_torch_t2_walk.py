@@ -1,20 +1,21 @@
-"""Record-mode Tier-2 in one native call a tile-part (codec.Decoder._walk,
-native t2_walk_tile_part) held to its per-packet twin (the same tables
-filled a packet at a time through core/t2.py's _parse_precinct_native):
-after every tile-part, both record tables and the tile's next packet
-are equal, and a malformed packet raises the same exception with the
-same message, strict and resilient.  Then the planner's native pass
-(native.plan_lanes) on records edited into the cases the host
-decoder's checks reject: the first broken lane in group-then-lane order
-names the error, resilience counts them, and one live lane of 30 or more
-missing MSBs turns its group to 64 bits.  Streams come from the JAX
-package's encoder on the CPU."""
+"""Tier-2 in one native call a tile-part (codec.Decoder._walk, native
+t2_walk_tile_part) held to the JAX package's per-packet parser (the
+same record tables filled a packet at a time through
+openjph_tpu.core.t2.parse_precinct): after every tile-part, both record
+tables and the tile's next packet are equal, and a malformed packet
+raises the same exception with the same message, strict and resilient.
+Then the planner's native pass (native.plan_lanes) on records edited
+into the cases the host decoder's checks reject: the first broken lane
+in group-then-lane order names the error, resilience counts them, and
+one live lane of 30 or more missing MSBs turns its group to 64 bits.
+Streams come from the JAX package's encoder on the CPU."""
 import numpy as np
 import pytest
 
 from openjph_tpu import codec as jcodec
 from openjph_tpu import encode
 from openjph_tpu.core import markers as jmk
+from openjph_tpu.core.t2 import parse_precinct
 from openjph_tpu.tpu import pipeline as jp
 
 from openjph_tpu_torch import codec
@@ -101,12 +102,12 @@ def streams():
 
 
 class _Logged(codec.Decoder):
-    """A record-mode decoder that logs each tile-part's outcome: (tile,
-    next packet, exception type and message, both record tables)."""
+    """A decoder that logs each tile-part's outcome: (tile, next packet,
+    exception type and message, both record tables)."""
 
     def __init__(self, data, **kw):
         self.log = []
-        super().__init__(data, record_t2=True, **kw)
+        super().__init__(data, **kw)
 
     def _parse_one_tile_part(self, st, pos, data_left):
         err = None
@@ -123,15 +124,24 @@ class _Logged(codec.Decoder):
 
 
 class _PerPacket(_Logged):
-    """The same tables filled a packet at a time."""
+    """The same tables filled a packet at a time by the JAX package's
+    parser."""
 
     def _walk(self, st, pos, data_left):
-        self._parse_packets(st, pos, data_left, records=True)
+        seq, _ = st.walk.packets(self.hdr, self.skip_read)
+        while data_left > 0 and st.next_packet < len(seq):
+            c, r, pidx, skip = seq[st.next_packet]
+            st.next_packet += 1
+            cod = self.hdr.get_cod(c)
+            pos, data_left = parse_precinct(
+                st.geom.comps[c].resolutions[r], pidx, None, self.data,
+                pos, data_left, cod.uses_sop, cod.uses_eph,
+                skip_data=skip, records=st.rec[(c, r)])
 
 
 def _parse(cls, data, **kw):
-    """(log, error) of a record-mode parse: the decoder's tile-part log
-    and the (type, message) it raised, if any."""
+    """(log, error) of a parse: the decoder's tile-part log and the
+    (type, message) it raised, if any."""
     dec = cls.__new__(cls)
     try:
         cls.__init__(dec, data, **kw)
@@ -162,8 +172,8 @@ def test_walker_equals_the_per_packet_parse(streams, name):
         n += _assert_same_parse(data, resilient=resilient,
                                 skipped_res_for_read=skip,
                                 skipped_res_for_recon=skip)
-    dec = codec.Decoder(data, record_t2=True, skipped_res_for_read=skip)
-    assert dec.record_t2 and n >= 2 * len(dec.tiles)
+    dec = codec.Decoder(data, skipped_res_for_read=skip)
+    assert n >= 2 * len(dec.tiles)
     # every packet of every tile was walked, and the walk's records are
     # the view the readers take
     for st in dec.tiles:

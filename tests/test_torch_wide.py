@@ -49,8 +49,8 @@ from openjph_tpu_torch.gpu import block_encode_cuda as E
 from openjph_tpu_torch.gpu import block_refine_cuda as R
 from openjph_tpu_torch.gpu import encode_pipeline as ep
 from openjph_tpu_torch.gpu import pipeline as tp
-from openjph_tpu_torch.gpu.bitprep import prep_cleanup_streams
-from openjph_tpu_torch.gpu.block_refine import prep_refine_streams
+from openjph_tpu_torch.native import (prep_cleanup_streams,
+                                     prep_refine_streams)
 from openjph_tpu_torch.gpu.encode_pipeline import _ebucket
 from openjph_tpu_torch.parallel import MosaicEncoder, make_mesh
 
