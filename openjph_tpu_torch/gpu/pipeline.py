@@ -959,73 +959,59 @@ def _blob_margin(pairs) -> int:
     return 4 * (mw + _ROW + 2)
 
 
-def _pack_device(pairs):
-    """Raw-bytes layout of a burst of (decoder, plan) pairs: each
-    lane's blob range is d[0:lcup-1] (byte lcup-2 OR'd 0xF), followed by
-    its refinement segment when it has one; the kernels read MagSgn from
-    the first lcup-scup bytes, MEL / VLC from the rest of the cleanup
-    bytes, forward / backward, and SigProp / MagRef from the refinement
-    segment, forward / backward.  Per-lane byte positions come straight
-    from plan.lanes; native.build_seg_blob_ptrs and copy_ranges_ptrs copy
-    each lane's ranges out of its frame's stream buffer.  Always returns
-    (buf,)."""
+class _HostBuffer:
+    """A host buffer that one writer fills again and again: ``take(n)``
+    is a uint32 view of its first n bytes, the buffer grown first (with
+    an eighth to spare, so bursts of one geometry stop growing it) when
+    it holds fewer; inside a traced burst a growth is the stage
+    ``decode.pack.grow``."""
+
+    def __init__(self):
+        self._buf = np.empty(0, np.uint32)
+
+    def take(self, nbytes: int) -> np.ndarray:
+        if self._buf.nbytes < nbytes:
+            with trace.burst_stage('decode.pack.grow'):
+                self._buf = np.empty((nbytes + nbytes // 8) // 4, np.uint32)
+        return self._buf[:nbytes // 4]
+
+
+def _pack_device(pairs, out: _HostBuffer = None):
+    """Raw-bytes layout of a burst of (decoder, plan) pairs, one buffer
+    for one upload: each lane's blob range is d[0:lcup-1] (byte lcup-2
+    OR'd 0xF), followed by its refinement segment when it has one, then
+    the meta plane (range start, lcup - scup, scup - 1, 0, 0, 0, p, qhl)
+    and for a refine plan the rmeta plane (range start + lcup - 1, len2,
+    0, 0, npasses, h_true, causal, 0).  The kernels read MagSgn from the
+    first lcup-scup bytes, MEL / VLC from the rest of the cleanup bytes,
+    forward / backward, and SigProp / MagRef from the refinement
+    segment, forward / backward.  The layout (margins, padding, planes)
+    is sized here from plan.lanes; native.pack_raw_burst writes every
+    byte of it in one pass, out of each frame's stream buffer, into
+    ``out.take`` when ``out`` is given and a fresh buffer otherwise.
+    Returns (buf,)."""
     refine = pairs[0][1].has_refine
-    lcall = np.concatenate([p.lanes[1] for _, p in pairs])
-    scall = np.concatenate([p.lanes[2] for _, p in pairs])
-    pall = np.concatenate([p.lanes[3] for _, p in pairs])
-    qall = np.concatenate([p.lanes[4] for _, p in pairs])
-    l2all = (np.concatenate([p.lanes[6] for _, p in pairs])
-             if refine else np.zeros_like(lcall))
+
+    def cat(k):
+        return np.concatenate([p.lanes[k] for _, p in pairs])
+
+    # a lane's host address in its frame's stream; 0 marks a dead lane
+    ptrs = np.concatenate([
+        np.where(p.lanes[0] >= 0,
+                 np.frombuffer(d.data, np.uint8).ctypes.data + p.lanes[0], 0)
+        for d, p in pairs])
+    lcups = cat(1)
+    rinfo = (cat(6), cat(5), cat(7), cat(8)) if refine else None
     lead = _blob_margin(pairs)
-    sizes = lcall - 1 + l2all
-    base = np.zeros_like(sizes)
-    base[0] = lead
-    np.cumsum(sizes[:-1], out=base[1:])
-    base[1:] += lead
-    total = int(sizes.sum()) + 2 * lead
+    total = int(lcups.sum()) - len(lcups) + 2 * lead \
+        + (int(rinfo[0].sum()) if refine else 0)
     padded = 4 * _bucket_words(max((total + 3) // 4 + 1, 2))
-    blob = np.zeros(padded, np.uint8)
-    ptr_l = []
-    for dec, plan in pairs:
-        pos = plan.lanes[0]
-        buf = np.frombuffer(dec.data, np.uint8)
-        # dead lanes (pos < 0) get lcup < 2 via the sentinel pointer 0
-        ptr_l.append(np.where(pos >= 0, buf.ctypes.data + pos, 0))
-    ptrs = np.concatenate(ptr_l)
-    lc_eff = np.where(ptrs != 0, lcall, 0)
-    native.build_seg_blob_ptrs(ptrs, lc_eff, base, blob)
-    dead = ptrs == 0
-    if dead.any():
-        # canonical dummy segment byte for dead/padding lanes
-        blob[base[dead]] = 0x0F
-    rinfo = None
-    if refine:
-        l2_eff = np.where(ptrs != 0, l2all, 0)
-        native.copy_ranges_ptrs(np.where(l2_eff > 0, ptrs + lcall, 0),
-                                l2_eff, base + lcall - 1, blob)
-        rinfo = tuple(np.concatenate([p.lanes[k] for _, p in pairs])
-                      for k in (5, 6, 7, 8))
-    return _finish_device_pack(blob, base, lcall, scall, pall, qall, rinfo)
-
-
-def _finish_device_pack(blob, base, lcups, scups, p, qhl, rinfo=None):
-    """Meta layout (lane_off, ms_n, sh_n, 0, 0, 0, p, qhl) appended to
-    the blob: one buffer, one upload.  Refine plans append a second meta
-    plane (roff, len2, 0, 0, npasses, h_true, causal, 0) from ``rinfo``
-    = (npasses, len2, h_true, causal).  Returns (buf,)."""
-    z = np.zeros_like(base)
-    meta = np.stack([base, lcups - scups, scups - 1, z, z, z,
-                     p.astype(np.int64), qhl.astype(np.int64)],
-                    axis=1).astype(np.int32)
-    parts = [blob.view(np.uint32), meta.reshape(-1).view(np.uint32)]
-    if rinfo is not None:
-        npall, l2all, hall, call_ = rinfo
-        rmeta = np.stack([base + lcups - 1, l2all, z, z,
-                          npall.astype(np.int64), hall.astype(np.int64),
-                          call_.astype(np.int64), z],
-                         axis=1).astype(np.int32)
-        parts.append(rmeta.reshape(-1).view(np.uint32))
-    return (np.concatenate(parts),)
+    nbytes = padded + 32 * len(lcups) * (2 if refine else 1)
+    buf = np.empty(nbytes // 4, np.uint32) if out is None \
+        else out.take(nbytes)
+    native.pack_raw_burst(ptrs, lcups, cat(2), cat(3), cat(4), rinfo, lead,
+                          padded, buf)
+    return (buf,)
 
 
 def _pack_dense(pairs):
@@ -1174,10 +1160,11 @@ class GpuDecoder(Decoder):
             return _assemble_burst([self], host)[0]
 
 
-def _pack(pairs, raw: bool) -> tuple:
+def _pack(pairs, raw: bool, out: _HostBuffer = None) -> tuple:
     """The host buffers of a burst of (decoder, plan) pairs in the
-    runner mode ``raw`` selects."""
-    return _pack_device(pairs) if raw else _pack_dense(pairs)
+    runner mode ``raw`` selects; the raw layout is written into ``out``
+    where one is given (see _pack_device)."""
+    return _pack_device(pairs, out) if raw else _pack_dense(pairs)
 
 
 def _zeroed_blocks(broken: int, nerr: int, resilient: bool) -> None:
@@ -1339,7 +1326,9 @@ class VideoDecoder:
 
     With tracing enabled each burst is a ``decode.burst`` span from its
     submit to its collect, and its stages count under it: the prep
-    worker's queue wait, host prep (its Tier-2, plan and pack), dispatch (upload, Tier-1 and the
+    worker's queue wait, host prep (its Tier-2, plan and pack; inside the
+    pack, a growth of the raw packs' host buffer, which the prep worker
+    reuses burst after burst), dispatch (upload, Tier-1 and the
     rest of graph: its eager launches, its capture or its replay), the
     caller's collect wait and error checks (PERF.md section 3)."""
 
@@ -1360,6 +1349,13 @@ class VideoDecoder:
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == 'cuda' else None)
         self._stager = Stager(self.device)
+        # the one prep worker packs each raw burst into the same host
+        # buffer where the upload has copied its bytes out by the time
+        # _dispatch returns: a staged upload (pinned copy; a copy on the
+        # CPU) or a pageable one to a CUDA device (synchronous).  A
+        # pageable upload on the CPU aliases it, so that takes a fresh one.
+        self._pack_out = (_HostBuffer() if stage_uploads
+                          or self.device.type == 'cuda' else None)
         self._prep_pool = ThreadPoolExecutor(max_workers=1)
         self._fetch_pool = ThreadPoolExecutor(max_workers=1)
 
@@ -1386,7 +1382,7 @@ class VideoDecoder:
                         # them
                         args = tuple(np.ascontiguousarray(a).view(np.int32)
                                      for a in _pack(list(zip(decs, plans)),
-                                                    self.raw))
+                                                    self.raw, self._pack_out))
             if plans is None:
                 self.fallback_bursts += 1
                 return decs, None, [d.decode() for d in decs]

@@ -67,22 +67,16 @@ def _load():
             ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
             ctypes.c_int64]
-        lib.build_seg_blob_ptrs.restype = None
-        lib.build_seg_blob_ptrs.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64]
+        lib.pack_raw_burst.restype = None
+        lib.pack_raw_burst.argtypes = [ctypes.c_int64] + \
+            [ctypes.c_void_p] * 9 + [ctypes.c_int64] * 3 + \
+            [ctypes.c_void_p]
         lib.prep_refine_streams.restype = None
         lib.prep_refine_streams.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_int64,
             ctypes.c_void_p, ctypes.c_int64,
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64]
-        lib.copy_ranges_ptrs.restype = None
-        lib.copy_ranges_ptrs.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64]
         lib.decode_codeblock.restype = ctypes.c_int
         lib.decode_codeblock.argtypes = [
             ctypes.c_void_p] + [ctypes.c_int64] * 7 + \
@@ -226,40 +220,39 @@ def t2_emit_packet(bands: np.ndarray, recs: np.ndarray,
                                   out.ctypes.data, out.shape[0]))
 
 
-def build_seg_blob_ptrs(src_ptrs, lcups, lane_off, out: np.ndarray,
-                        nthreads: int = 0) -> np.ndarray:
-    """Pointer-batch blob builder: src_ptrs[i] is the absolute host
-    address of lane i's bytes (the caller keeps the owning buffers
-    alive); each lane's range is d[0:lcup-1] with byte lcup-2 OR'd
-    0xF.  Returns per-lane 0x7F-low byte counts, counted during the
-    copy."""
-    lib = _load()
-    src_ptrs = np.ascontiguousarray(src_ptrs, np.int64)
-    lcups = np.ascontiguousarray(lcups, np.int64)
-    lane_off = np.ascontiguousarray(lane_off, np.int64)
-    n = len(lane_off)
-    ev = np.zeros(n, np.int64)
-    lib.build_seg_blob_ptrs(
-        src_ptrs.ctypes.data, lcups.ctypes.data, n,
-        lane_off.ctypes.data, out.ctypes.data, ev.ctypes.data,
-        _threads(nthreads))
-    return ev
+# a raw pack splits over the library's kept threads, one part for each
+# this many bytes of its buffer, at most 8: on the H100's host a gray
+# burst of 8 (12 MB) packs in 0.67-0.79 ms in 8 parts against 1.90-1.95
+# in one, an RGB frame (1.9 MB) in 0.28-0.33 against 0.43-0.47 (PERF.md
+# section 6)
+PACK_PART_BYTES = 1 << 18
 
 
-def copy_ranges_ptrs(src_ptrs, lens, lane_off, out: np.ndarray,
-                     nthreads: int = 0) -> np.ndarray:
-    """Copy lane byte ranges (absolute host pointers) into ``out`` at
-    lane_off; returns per-lane 0x7F-low byte counts."""
+def pack_raw_burst(src_ptrs, lcups, scups, p, qhl, refine, lead: int,
+                   padded: int, out: np.ndarray) -> None:
+    """Write a burst's raw-bytes upload buffer into ``out`` (see
+    ojtpu_native.cpp): ``lead`` zero bytes, each lane's stuffed segment
+    bytes from host address ``src_ptrs[i]`` (0: a dead lane), zeros to
+    ``padded`` bytes, then the meta plane and, where ``refine`` =
+    (len2, npasses, h_true, causal) is given, the rmeta plane.  ``out``
+    holds exactly those bytes: padded + 32 bytes a lane a plane.  The
+    copy splits into contiguous runs of lanes, one per PACK_PART_BYTES of
+    ``padded``, on threads the library keeps."""
     lib = _load()
-    src_ptrs = np.ascontiguousarray(src_ptrs, np.int64)
-    lens = np.ascontiguousarray(lens, np.int64)
-    lane_off = np.ascontiguousarray(lane_off, np.int64)
-    n = len(lane_off)
-    ev = np.zeros(n, np.int64)
-    lib.copy_ranges_ptrs(src_ptrs.ctypes.data, lens.ctypes.data, n,
-                         lane_off.ctypes.data, out.ctypes.data,
-                         ev.ctypes.data, _threads(nthreads))
-    return ev
+    n = len(src_ptrs)
+    ar = [np.ascontiguousarray(a, t) for a, t in
+          ((src_ptrs, np.int64), (lcups, np.int64), (scups, np.int64),
+           (p, np.int32), (qhl, np.int32))]
+    if refine is not None:
+        ar += [np.ascontiguousarray(a, t) for a, t in
+               zip(refine, (np.int64, np.int32, np.int32, np.uint8))]
+    if any(a.shape != (n,) for a in ar) or not out.flags.c_contiguous \
+            or out.nbytes != padded + 32 * n * (1 if refine is None else 2):
+        raise ValueError('pack_raw_burst: lane arrays or out of the wrong '
+                         'size')
+    ptrs = [a.ctypes.data for a in ar] + [None] * (9 - len(ar))
+    lib.pack_raw_burst(n, *ptrs, lead, padded, padded // PACK_PART_BYTES,
+                       out.ctypes.data)
 
 
 def prep_cleanup_dense(blob: bytes, offsets, lcups, scups, meta,

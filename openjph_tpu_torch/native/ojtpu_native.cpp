@@ -11,9 +11,14 @@
 //
 // Build: g++ -O3 -shared -fPIC (driven by openjph_tpu/native/__init__.py).
 
+#include <unistd.h>
+
 #include <algorithm>
+#include <condition_variable>
 #include <cstdint>
 #include <cstring>
+#include <functional>
+#include <mutex>
 #include <thread>
 #include <vector>
 
@@ -342,107 +347,181 @@ void prep_cleanup_dense(const uint8_t* data, const int64_t* offsets,
   }
 }
 
-// Lay out the raw (still byte-stuffed) segment bytes of a lane batch
-// for ON-DEVICE unstuffing (tpu/unstuff.py): each lane's range of the
-// blob is d[0:lcup-1] verbatim except byte lcup-2 (the shared MEL-
-// last/VLC-nibble byte) OR'd with 0xF — transparent to the VLC
-// reader (its nibble is the high 4 bits, and its initial unstuff
-// test already ORs 0xF: ojph_block_decoder32.cpp dec_mel_st/
-// rev_struct init) and required by the MEL reader.  The MagSgn
-// stream is bytes [0, lcup-scup) of the range; MEL reads the rest
-// forward; VLC reads the rest backward.  Pure memcpy — all bit work
-// happens on the accelerator.
-// Pointer-batch variant: src_ptrs[i] is the absolute host address of
-// lane i's segment bytes (lanes may come from different frame
-// buffers), and the copy pass also counts the lane's post-OR
-// 0x7F-low bytes (the on-device unstuffer's worst-case deleted-bit
-// budget, tpu/unstuff.py) — the count is free while the bytes are in
-// cache.  Lanes with lcup < 2 are skipped (dead lanes; the caller
-// writes their canonical dummy byte).
-// Plain range copies for the refinement segments of a device-unstuff
-// blob: lane i's lens[i] bytes from src_ptrs[i] land at
-// blob + lane_off[i]; ev_counts[i] returns the range's 0x7F-low byte
-// count (the on-device unstuffer's deleted-bit budget).
-void copy_ranges_ptrs(const int64_t* src_ptrs, const int64_t* lens,
-                      int64_t n, const int64_t* lane_off,
-                      uint8_t* blob, int64_t* ev_counts,
-                      int64_t nthreads) {
-  if (nthreads < 1 || n < 64) nthreads = 1;
-  auto work = [&](int64_t t, int64_t stride) {
-    for (int64_t i = t; i < n; i += stride) {
-      const int64_t len = lens[i];
-      int64_t ev = 0;
-      if (len > 0) {
-        const uint8_t* d = reinterpret_cast<const uint8_t*>(src_ptrs[i]);
-        uint8_t* o = blob + lane_off[i];
-        std::memcpy(o, d, static_cast<size_t>(len));
-        for (int64_t k = 0; k < len; ++k)
-          ev += (o[k] & 0x7F) == 0x7F;
-      }
-      ev_counts[i] = ev;
-    }
-  };
-  if (nthreads == 1) {
-    work(0, 1);
-    return;
-  }
-  std::vector<std::thread> ts;
-  for (int64_t t = 0; t < nthreads; ++t)
-    ts.emplace_back(work, t, nthreads);
-  for (auto& th : ts) th.join();
-}
+}  // extern "C"
 
-void build_seg_blob_ptrs(const int64_t* src_ptrs, const int64_t* lcups,
-                         int64_t n, const int64_t* lane_off,
-                         uint8_t* blob, int64_t* ev_counts,
-                         int64_t nthreads) {
-  if (nthreads < 1) nthreads = 1;
-  auto work = [&](int64_t t) {
-    for (int64_t i = t; i < n; i += nthreads) {
-      const int64_t lcup = lcups[i];
-      uint8_t* o = blob + lane_off[i];
-      int64_t ev = 0;
-      if (lcup >= 2) {
-        const uint8_t* d = reinterpret_cast<const uint8_t*>(src_ptrs[i]);
-        std::memcpy(o, d, static_cast<size_t>(lcup - 1));
-        o[lcup - 2] |= 0xF;
-        for (int64_t k = 0; k < lcup - 1; ++k)
-          ev += ((o[k] & 0x7F) == 0x7F) ? 1 : 0;
-      }
-      ev_counts[i] = ev;
-    }
-  };
-  if (nthreads == 1) {
-    work(0);
-  } else {
-    std::vector<std::thread> ts;
-    for (int64_t t = 0; t < nthreads; ++t) ts.emplace_back(work, t);
-    for (auto& th : ts) th.join();
-  }
-}
+namespace {
 
-void build_seg_blob(const uint8_t* data, const int64_t* offsets,
+// Worker threads made once and kept, for the one host copy large enough
+// to split (pack_raw_burst): run(k, f) calls f(0) .. f(k-1), part 0 on
+// the caller, the rest on whichever thread takes them first, and returns
+// when all are done.  Callers take turns.  A forked child makes a pool
+// of its own.
+class PackPool {
+ public:
+  // the most parts a call splits into: the caller and the workers
+  static int width() {
+    static const int w = static_cast<int>(
+        std::min(8u, std::max(std::thread::hardware_concurrency(), 1u)));
+    return w;
+  }
+
+  static PackPool& get() {
+    static std::mutex mu;
+    static PackPool* pool = nullptr;
+    std::lock_guard<std::mutex> lk(mu);
+    if (pool == nullptr || pool->pid_ != getpid()) {
+      // never freed: its threads outlive every caller
+      pool = new PackPool(width() - 1);
+    }
+    return *pool;
+  }
+
+  void run(int k, const std::function<void(int)>& f) {
+    std::lock_guard<std::mutex> one(call_);
+    {
+      std::lock_guard<std::mutex> lk(mu_);
+      job_ = &f;
+      parts_ = k;
+      next_ = 1;
+      left_ = k - 1;
+      ++gen_;
+    }
+    go_.notify_all();
+    f(0);
+    std::unique_lock<std::mutex> lk(mu_);
+    take(lk);
+    done_.wait(lk, [this] { return left_ == 0; });
+    job_ = nullptr;
+  }
+
+ private:
+  explicit PackPool(int workers) : pid_(getpid()) {
+    for (int t = 0; t < workers; ++t) std::thread([this] { loop(); }).detach();
+  }
+
+  // runs the job's parts not yet taken; mu_ held on entry and on return
+  void take(std::unique_lock<std::mutex>& lk) {
+    while (next_ < parts_) {
+      const int i = next_++;
+      const std::function<void(int)>& f = *job_;
+      lk.unlock();
+      f(i);
+      lk.lock();
+      if (--left_ == 0) done_.notify_one();
+    }
+  }
+
+  void loop() {
+    uint64_t seen = 0;
+    std::unique_lock<std::mutex> lk(mu_);
+    for (;;) {
+      go_.wait(lk, [&] { return gen_ != seen; });
+      seen = gen_;
+      take(lk);
+    }
+  }
+
+  const pid_t pid_;
+  std::mutex call_, mu_;
+  std::condition_variable go_, done_;
+  const std::function<void(int)>* job_ = nullptr;
+  int parts_ = 0, next_ = 0, left_ = 0;
+  uint64_t gen_ = 0;
+};
+
+}  // namespace
+
+extern "C" {
+
+// Lay out the raw (still byte-stuffed) segment bytes of a burst's lanes
+// for the kernels that unstuff them on the device
+// (gpu/pipeline.py::_pack_device): the whole upload buffer, every byte
+// written once.  First ``lead`` zero bytes; then each lane's range: its
+// cleanup bytes d[0:lcup-1] verbatim except byte lcup-2 (the shared
+// MEL-last / VLC-nibble byte) OR'd with 0xF -- transparent to the VLC
+// reader (its nibble is the high 4 bits, and its initial unstuff test
+// already ORs 0xF: ojph_block_decoder32.cpp dec_mel_st / rev_struct
+// init) and required by the MEL reader -- followed by its len2[i]
+// refinement bytes d[lcup:lcup+len2].  The MagSgn stream is bytes
+// [0, lcup-scup) of the range; MEL reads the rest forward, VLC backward.
+// src_ptrs[i] is the host address of lane i's bytes (lanes may come from
+// different frames' buffers); 0 marks a dead lane, whose range is the
+// canonical byte 0x0F and zeros.  Zeros up to ``padded``; then the meta
+// plane, int32 [n, 8] of (range start, lcup - scup, scup - 1, 0, 0, 0,
+// p, qhl), and where len2 is given, the rmeta plane, int32 [n, 8] of
+// (range start + lcup - 1, len2, 0, 0, npasses, h_true, causal, 0).
+// With len2 null, no lane has a refinement segment and no rmeta is
+// written.  Nothing is counted.  The lanes split into at most ``parts``
+// contiguous runs of about equal bytes, on the threads of PackPool.
+void pack_raw_burst(int64_t n, const int64_t* src_ptrs,
                     const int64_t* lcups, const int64_t* scups,
-                    int64_t n, const int64_t* lane_off,
-                    uint8_t* blob, int64_t nthreads) {
-  (void)scups;
-  if (nthreads < 1) nthreads = 1;
-  auto work = [&](int64_t t) {
-    for (int64_t i = t; i < n; i += nthreads) {
-      const uint8_t* d = data + offsets[i];
-      const int64_t lcup = lcups[i];
-      uint8_t* o = blob + lane_off[i];
-      std::memcpy(o, d, static_cast<size_t>(lcup - 1));
-      o[lcup - 2] |= 0xF;
+                    const int32_t* p, const int32_t* qhl,
+                    const int64_t* len2, const int32_t* npasses,
+                    const int32_t* h_true, const uint8_t* causal,
+                    int64_t lead, int64_t padded, int64_t parts,
+                    uint8_t* out) {
+  // at[i]: lane i's range start; at[n]: the end of the last range
+  std::vector<int64_t> at(static_cast<size_t>(n) + 1);
+  at[0] = lead;
+  for (int64_t i = 0; i < n; ++i)
+    at[i + 1] = at[i] + lcups[i] - 1 + (len2 ? len2[i] : 0);
+  int32_t* meta = reinterpret_cast<int32_t*>(out + padded);
+  int32_t* rmeta = len2 ? meta + 8 * n : nullptr;
+  auto lanes = [&](int64_t i0, int64_t i1) {
+    for (int64_t i = i0; i < i1; ++i) {
+      const int64_t lc = lcups[i] - 1;
+      const int64_t l2 = len2 ? len2[i] : 0;
+      uint8_t* o = out + at[i];
+      if (src_ptrs[i] != 0) {
+        const uint8_t* d = reinterpret_cast<const uint8_t*>(src_ptrs[i]);
+        if (lc > 0) {
+          std::memcpy(o, d, static_cast<size_t>(lc));
+          o[lc - 1] |= 0xF;
+        }
+        if (l2 > 0) std::memcpy(o + lc, d + lc + 1, static_cast<size_t>(l2));
+      } else if (lc + l2 > 0) {
+        o[0] = 0x0F;
+        std::memset(o + 1, 0, static_cast<size_t>(lc + l2 - 1));
+      }
+      int32_t* m = meta + 8 * i;
+      m[0] = static_cast<int32_t>(at[i]);
+      m[1] = static_cast<int32_t>(lcups[i] - scups[i]);
+      m[2] = static_cast<int32_t>(scups[i] - 1);
+      m[3] = m[4] = m[5] = 0;
+      m[6] = p[i];
+      m[7] = qhl[i];
+      if (rmeta) {
+        int32_t* r = rmeta + 8 * i;
+        r[0] = static_cast<int32_t>(at[i] + lc);
+        r[1] = static_cast<int32_t>(l2);
+        r[2] = r[3] = 0;
+        r[4] = npasses[i];
+        r[5] = h_true[i];
+        r[6] = causal[i];
+        r[7] = 0;
+      }
     }
   };
-  if (nthreads == 1) {
-    work(0);
-  } else {
-    std::vector<std::thread> ts;
-    for (int64_t t = 0; t < nthreads; ++t) ts.emplace_back(work, t);
-    for (auto& th : ts) th.join();
-  }
+  const int k = static_cast<int>(
+      std::max<int64_t>(1, std::min<int64_t>({parts, PackPool::width(), n})));
+  // part j: the lanes whose range starts in its share of the bytes; the
+  // first also zeroes the lead, the last the tail
+  std::vector<int64_t> cut(static_cast<size_t>(k) + 1);
+  cut[0] = 0;
+  cut[k] = n;
+  for (int j = 1; j < k; ++j)
+    cut[j] = std::lower_bound(at.begin(), at.end() - 1,
+                              lead + (at[n] - lead) * j / k) - at.begin();
+  auto part = [&](int j) {
+    if (j == 0) std::memset(out, 0, static_cast<size_t>(lead));
+    lanes(cut[j], cut[j + 1]);
+    if (j == k - 1)
+      std::memset(out + at[n], 0, static_cast<size_t>(padded - at[n]));
+  };
+  if (k == 1)
+    part(0);
+  else
+    PackPool::get().run(k, part);
 }
 
 }  // extern "C"

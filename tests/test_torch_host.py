@@ -3,8 +3,15 @@ same streams: decoder tables, Tier-2's record tables, the planner (key and
 per-lane arrays) and both packers (raw-bytes blob + meta, dense words +
 meta, and the refine meta of multi-pass streams).  A codec carries no weights; these are the state the port takes
 over from the reference.  The JAX planner pads lane groups to multiples
-of 8 on the CPU, as the port does everywhere.
+of 8 on the CPU, as the port does everywhere.  The raw-bytes buffer is
+held equal in a fresh buffer and in a reused one that starts out full of
+0xAB and takes a larger burst before a smaller one, the latter also
+written by the native library's threads in parts; a damaged stream
+decoded under resilience has broken lanes, packed as dead lanes are: the
+byte 0x0F, then zeros.
 """
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import pytest
 
@@ -13,6 +20,7 @@ from openjph_tpu.coding.tables import get_tables as jax_tables
 from openjph_tpu.tpu import pipeline as jp
 
 from openjph_tpu_torch.coding.tables import get_tables
+from openjph_tpu_torch import native
 from openjph_tpu_torch.gpu import pipeline as tp
 
 
@@ -40,7 +48,22 @@ def _cases():
                          block_size=(16, 16)), 1),
         'multipass': (encode([g], reversible=True, num_decomps=2,
                              ht_passes=3), 0),
+        'damaged': (_damaged(encode([g], reversible=True, num_decomps=3,
+                                    block_size=(32, 32))), 0),
     }
+
+
+def _damaged(stream):
+    """``stream`` with the last cleanup byte of every third live lane set
+    to 0xFF: its scup reads above 4079, so the planner finds those
+    codeblocks broken (strict decode raises, resilient decode plans them
+    dead)."""
+    plan = tp._build_plan(tp.GpuDecoder(stream, device='cpu'))
+    pos, lcup = plan.lanes[:2]
+    bad = bytearray(stream)
+    for i in np.flatnonzero(pos >= 0)[1::3]:
+        bad[pos[i] + lcup[i] - 1] = 0xFF
+    return bytes(bad)
 
 
 @pytest.fixture(scope='module')
@@ -48,10 +71,33 @@ def cases():
     return _cases()
 
 
-def _decoders(stream, skip):
-    kw = dict(skipped_res_for_read=skip, skipped_res_for_recon=skip)
+def _decoders(stream, skip, resilient=False):
+    kw = dict(skipped_res_for_read=skip, skipped_res_for_recon=skip,
+              resilient=resilient)
     return (jp.TpuDecoder(stream, **kw),
             tp.GpuDecoder(stream, device='cpu', **kw))
+
+
+def _out(kind, monkeypatch):
+    """Where the raw pack writes: None (a fresh buffer), or a reused
+    host buffer that already holds 0xAB bytes, more than a test burst
+    needs; split, the reused buffer written by the native library's
+    threads in parts of 64 bytes and more, as a burst of megabytes is."""
+    if kind == 'fresh':
+        return None
+    if kind == 'split':
+        monkeypatch.setattr(native, 'PACK_PART_BYTES', 64)
+    out = tp._HostBuffer()
+    out.take(1 << 20).view(np.uint8).fill(0xAB)
+    return out
+
+
+def _pack_raw(pairs, out):
+    """tp._pack_device's buffer; a reused one is a view of ``out``."""
+    (buf,) = tp._pack_device(pairs, out)
+    if out is not None:
+        assert np.shares_memory(buf, out.take(buf.nbytes))
+    return buf
 
 
 def _norm(x):
@@ -95,17 +141,28 @@ def test_tier2_records_and_plan_match_jax(cases, name):
         assert np.array_equal(a, b)
 
 
-@pytest.mark.parametrize('name', ['gray53', 'rct_tiles', 'ict97', 'skip1'])
-def test_packers_match_jax(cases, name):
+@pytest.mark.parametrize('out', ['fresh', 'reused', 'split'])
+@pytest.mark.parametrize('name', ['gray53', 'rct_tiles', 'ict97', 'skip1',
+                                  'damaged'])
+def test_packers_match_jax(cases, name, out, monkeypatch):
     stream, skip = cases[name]
-    jd, td = _decoders(stream, skip)
+    jd, td = _decoders(stream, skip, resilient=name == 'damaged')
     jplan, tplan = jp._build_plan(jd), tp._build_plan(td)
+    assert (tplan.broken > 0) == (name == 'damaged')
     # raw-bytes blob + meta: equal wherever the JAX packer returns one
     r = jp._pack_device([(jd, jplan)])
     assert r is not None
     (jbuf,), _ = r
-    (tbuf,) = tp._pack_device([(td, tplan)])
+    tbuf = _pack_raw([(td, tplan)], _out(out, monkeypatch))
     assert tbuf.dtype == jbuf.dtype and np.array_equal(tbuf, jbuf)
+    # dead lanes (qhl 0): the byte 0x0F, then zeros to the range's end
+    n = tplan.lanes[0].shape[0]
+    meta = tbuf[-8 * n:].view(np.int32).reshape(n, 8)
+    blob = tbuf.view(np.uint8)
+    dead = np.flatnonzero(meta[:, 7] == 0)
+    assert dead.size >= tplan.broken
+    for at, ms, sh in meta[dead, :3]:
+        assert blob[at] == 0x0F and not blob[at + 1:at + ms + sh].any()
     # dense words + meta, native and numpy packers
     for a, b in zip(tp._pack_burst_fast([(td, tplan)]),
                     jp._pack_burst_fast([(jd, jplan)])):
@@ -115,16 +172,39 @@ def test_packers_match_jax(cases, name):
         assert a.dtype == b.dtype and np.array_equal(a, b)
 
 
-def test_two_frame_pack_matches_jax(cases):
+@pytest.mark.parametrize('out', ['fresh', 'reused', 'split'])
+def test_two_frame_pack_matches_jax(cases, out, monkeypatch):
+    """Two frames, then one into the same buffer where it is reused."""
     stream, _ = cases['gray53']
     jd, td = _decoders(stream, 0)
     jplan, tplan = jp._build_plan(jd), tp._build_plan(td)
-    (jbuf,), _ = jp._pack_device([(jd, jplan), (jd, jplan)])
-    (tbuf,) = tp._pack_device([(td, tplan), (td, tplan)])
-    assert np.array_equal(tbuf, jbuf)
+    out = _out(out, monkeypatch)
+    for n in (2, 1):
+        (jbuf,), _ = jp._pack_device([(jd, jplan)] * n)
+        tbuf = _pack_raw([(td, tplan)] * n, out)
+        assert np.array_equal(tbuf, jbuf)
 
 
-def test_multipass_pack_raises(cases):
+def test_split_packs_from_two_threads_match_jax(cases, monkeypatch):
+    """Two threads that pack in parts at once take turns on the native
+    library's kept threads: every buffer equals the JAX package's."""
+    stream, _ = cases['gray53']
+    jd, td = _decoders(stream, 0)
+    jplan, tplan = jp._build_plan(jd), tp._build_plan(td)
+    (want,), _ = jp._pack_device([(jd, jplan)] * 2)
+    monkeypatch.setattr(native, 'PACK_PART_BYTES', 64)
+
+    def packs(_):
+        out = tp._HostBuffer()
+        return all(np.array_equal(_pack_raw([(td, tplan)] * 2, out), want)
+                   for _ in range(20))
+
+    with ThreadPoolExecutor(2) as ex:
+        assert all(ex.map(packs, range(2)))
+
+
+@pytest.mark.parametrize('out', ['fresh', 'reused', 'split'])
+def test_multipass_pack_raises(cases, out, monkeypatch):
     """Multi-pass streams no longer raise: both packers give buffers
     byte-identical to the JAX package's, the refine meta plane (rmeta)
     included, for one frame and for two."""
@@ -132,11 +212,12 @@ def test_multipass_pack_raises(cases):
     jd, td = _decoders(stream, 0)
     jplan, tplan = jp._build_plan(jd), tp._build_plan(td)
     assert tplan.has_refine
+    out = _out(out, monkeypatch)
     for n in (1, 2):
         r = jp._pack_device([(jd, jplan)] * n)
         assert r is not None
         (jbuf,), _ = r
-        (tbuf,) = tp._pack_device([(td, tplan)] * n)
+        tbuf = _pack_raw([(td, tplan)] * n, out)
         assert tbuf.dtype == jbuf.dtype and np.array_equal(tbuf, jbuf)
         want = jp._pack([(jd, jplan)] * n)
         got = tp._pack_dense([(td, tplan)] * n)

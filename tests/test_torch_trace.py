@@ -178,7 +178,8 @@ def test_stage_name_parity_with_the_jax_package():
     assert port_names - jax_names <= {
         'decode.upload', 'encode.upload', 'encode.pack.fetch',
         'encode.pack.stuff', 'encode.pack.fill', 'encode.dev.aux_fetch',
-        'decode.fetch', 'decode.plan'} | BURST_STAGES | {'host.gc'}
+        'decode.fetch', 'decode.plan', 'decode.pack.grow',
+        'host.gc'} | BURST_STAGES
 
 
 def test_torch_trace_writes_a_chrome_trace(tmp_path):

@@ -253,6 +253,47 @@ def test_staging_ring_takes_free_slots_in_turn():
     assert list(st._rings) == ['l', 'm']
 
 
+@pytest.mark.parametrize('stage', [True, False], ids=['staged', 'pageable'])
+def test_raw_pack_buffer_is_reused_where_the_upload_copies_it(stage):
+    """A traced VideoDecoder over a ring of one geometry packs its raw
+    bursts into one host buffer: ``decode.pack.grow`` once, inside the
+    first burst's pack, and ``decode.host_prep.pack`` every burst; its
+    frames equal an untraced decode's and decode_gpu's.  A pageable
+    upload on the CPU aliases the packed buffer, so that decoder packs
+    every burst into a fresh one and grows nothing."""
+    from openjph_tpu_torch import trace
+    frames, streams = _video()
+    bursts = (tuple(streams[:4]), tuple(streams[4:])) * 2
+    untraced = _collect(tp.VideoDecoder(device='cpu', stage_uploads=stage),
+                        bursts)
+    trace.reset()
+    trace.enable()
+    try:
+        vd = tp.VideoDecoder(device='cpu', stage_uploads=stage)
+        got = _collect(vd, bursts)
+        vd.close()
+    finally:
+        trace.disable()
+        stats = trace.get_stats()
+        trace.reset()
+    assert stats['decode.host_prep.pack']['calls'] == len(bursts)
+    assert (vd._pack_out is None) == (not stage)
+    if stage:
+        assert stats['decode.pack.grow']['calls'] == 1
+        assert stats['decode.pack.grow']['parents'] == \
+            ['decode.host_prep.pack']
+    else:
+        assert 'decode.pack.grow' not in stats
+    single = {s: openjph_tpu_torch.decode_gpu(s, device='cpu')
+              for s in streams}
+    for g, u, b in zip(got, untraced, bursts):
+        _equal(g, u)
+        _equal(g, [single[s] for s in b])
+    for burst, base in zip(got, (0, 4) * 2):
+        for i, planes in enumerate(burst):
+            assert np.array_equal(planes[0], frames[base + i])
+
+
 def test_video_entry_points_need_cuda_by_default():
     if torch.cuda.is_available():
         pytest.skip('a CUDA device is present')
